@@ -6,9 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit code):
 
-1. Build the pair-scan kernel from ``ingress_plus_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the card's name and power limit.
-2. Kernel against plain, both configurations: the CUDA kernel
+1. Build both kernels from ``ingress_plus_tpu_torch/csrc`` (one nvcc per
+   source, started together; sm_90a) and print the card's name and power
+   limit.
+2. Pair kernel against plain, both configurations: the CUDA kernel
    (``ByteScanner`` raw-byte, ``PairScanner`` class-id) and the plain
    ``ops/scan.py::scan_pairs`` on the same CUDA tensors -- B=1024 seeded
    rows with attack substrings, L in {64, 2048, 16384}, ragged lengths
@@ -24,16 +25,33 @@ Phases (any failure ends the run with a non-zero exit code):
    for every request, and the kernel must have launched once per bucket.
    Then the kernel again on each of those launches' own buckets:
    bit-identical to the plain version, timed.
-4. Print the kernels line (the main path's launches, summed), the
-   nvidia-smi line, and the result line.
+4. Step kernel against plain: ``StepScanner`` and the plain
+   ``ops/scan.py::scan_bytes`` on the same CUDA tensors, at the shapes of
+   phase 2, on the edge shapes, and on a chained carry (rows split at
+   ragged points, scanned in two calls with the state carried, against one
+   whole-row call).  Match and state must be bit-identical.
+5. The batch path on ``scan_impl="pallas"`` (the step kernel) over the
+   requests of phase 3: verdicts identical to phase 3's CPU pipeline, one
+   launch per bucket, each launch re-run on its bucket and timed.
+6. The stream lane: seven concurrent 1 MiB streams
+   (``utils/stream_corpus.py``: benign form text, SQLi across a 64 KiB
+   boundary, a split %-escape, a gzip body with an attack at its inflated
+   tail, a base64 body, an attack only in the URI, a response leak),
+   driven chunk by chunk through ``StreamEngine`` on the card and, in a
+   child process (``chip_smoke.py --stream-cpu-reference``), on the CPU;
+   verdicts identical, planted attacks found, none failed open, one
+   kernel launch per wave.  While the child runs, every wave again on its
+   own inputs: bit-identical to ``scan_bytes``, timed.
+7. Read each kernel's compiled loop (SASS); print the kernels line, the
+   nvidia-smi line and the result line.
 
-Kernel times are device times: 20 launches captured in one CUDA graph,
-CUDA events around the replay, the median of the replays, per launch.
-The plain version's times are CUDA events around single host-driven
-calls.  The bound is the larger of bytes over the HBM rate and the
-recurrence's LOP3 / shift / shared-memory instruction counts over the
-SM pipes' rates (see ``bound``); ``sass_loop_mix`` reports how many
-instructions the compiled loop actually spends per pair.
+Kernel times are device times: several launches captured in one CUDA
+graph, CUDA events around the replay, the median of the replays, per
+launch.  The plain versions' times are CUDA events around single
+host-driven calls.  The bound is the larger of bytes over the HBM rate
+and the recurrence's LOP3 / shift / shared-memory instruction counts over
+the SM pipes' rates (see ``bound``); ``sass_loop_mix`` reports how many
+instructions each compiled loop actually spends per step.
 """
 
 from __future__ import annotations
@@ -46,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,11 +83,15 @@ SM_CLOCKS_PER_S = 67e12 / (128 * 2)
 ALU_LANES = 64      # LOP3 / SHF / IADD3 pipe: lanes per SM per clock
 ISSUE_LANES = 128   # 4 schedulers x one 32-lane instruction per clock
 LDS_LANES = 32      # 32 banks x 4 B: one conflict-free warp-wide load/clock
-#: per (row, word) of the recurrence in csrc/pair_scan.cu, its bitwise
-#: parts fused into LOP3: (LOP3, shifts, class-table reads) for one full
-#: pair and for the half pair an odd length ends with
+#: per (row, word) of each recurrence, its bitwise parts fused into LOP3:
+#: (LOP3, shifts, class-table reads) for one full pair and for the half
+#: pair an odd length ends with (csrc/pair_scan.cu), and for one byte
+#: (csrc/step_scan.cu)
 FULL_PAIR = (5, 3, 2)
 HALF_PAIR = (2, 1, 1)
+ONE_BYTE = (2, 1, 1)
+STREAM_BODY = 1 << 20       # BASELINE config #5: 1 MB POST bodies
+STREAM_CHUNK = 64 << 10     # the chunk an oversized body is fed in
 ATTACKS = (b"1' UNION SELECT password FROM users--", b"<script>alert(1)</script>",
            b";cat /etc/passwd", b"../../etc/shadow", b"${jndi:ldap://x/a}")
 
@@ -154,19 +177,25 @@ def scan_inputs(L: int, W: int, rng: np.random.Generator):
 
 
 def bound(lengths: np.ndarray, L: int, W: int, K1: int,
-          token_bytes: int) -> dict:
+          token_bytes: int, carried: bool, kernel: str = "pair") -> dict:
     """Least time for one call, with the work this call's lengths need:
     the larger of bytes / HBM rate (each input read once, each output
-    written once) and the recurrence's instructions over the SM pipe that
-    runs them slowest: LOP3 on the ALU pipe, every instruction through
-    issue, class-table reads through shared memory."""
+    written once; state and match in only when ``carried``) and the
+    recurrence's instructions over the SM pipe that runs them slowest:
+    LOP3 on the ALU pipe, every instruction through issue, class-table
+    reads through shared memory.  ``kernel`` "pair" counts full and half
+    pairs, "step" one step per byte."""
     n = np.clip(lengths.astype(np.int64), 0, L)
-    full, half = W * int((n // 2).sum()), W * int((n % 2).sum())
-    lop3, shifts, lds = (f * full + h * half
-                         for f, h in zip(FULL_PAIR, HALF_PAIR))
+    if kernel == "pair":
+        full, half = W * int((n // 2).sum()), W * int((n % 2).sum())
+        lop3, shifts, lds = (f * full + h * half
+                             for f, h in zip(FULL_PAIR, HALF_PAIR))
+    else:
+        steps = W * int(n.sum())
+        lop3, shifts, lds = (c * steps for c in ONE_BYTE)
     B = lengths.shape[0]
     nbytes = (B * L * token_bytes + B * 4          # tokens, lengths
-              + 2 * B * W * 4                      # match + state in
+              + (2 * B * W * 4 if carried else 0)  # match + state in
               + 2 * B * W * 4                      # match + state out
               + K1 * W * 4 + 257 * 4 + 2 * W * 4)  # tables
     pipes = {"alu": lop3 / ALU_LANES,
@@ -182,12 +211,13 @@ def bound(lengths: np.ndarray, L: int, W: int, K1: int,
             "bytes": nbytes}
 
 
-def sass_loop_mix(lib_path) -> dict:
-    """Instructions per pair in each kernel's hottest loop, read from the
+def sass_loop_mix(lib_path, unit: str, reads_per_unit: int) -> dict:
+    """Instructions per step in each kernel's hottest loop, read from the
     built library's SASS (``cuobjdump -sass``): the innermost loop (a
-    backward branch) with the most shared-memory loads, its pairs counted
-    as its 32-bit ``LDS`` (class-table reads) / 2.  Says how far the
-    compiled loop is from the recurrence's own count."""
+    backward branch) with the most shared-memory loads, its steps counted
+    as its 32-bit ``LDS`` (class-table reads) / ``reads_per_unit`` (2 per
+    pair for the pair kernel, 1 per byte for the step kernel).  Says how
+    far the compiled loop is from the recurrence's own count."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         text = subprocess.run([tool, "-sass", str(lib_path)],
@@ -199,7 +229,9 @@ def sass_loop_mix(lib_path) -> dict:
                         r"([A-Z][A-Z0-9_.]*)([^;]*);")
     out = {}
     for part in re.split(r"\n\s*Function : ", text)[1:]:
-        name = "raw_byte" if "ILb1E" in part.split("\n", 1)[0] else "class_id"
+        head = part.split("\n", 1)[0]
+        name = ("step_scan" if "step_scan_kernel" in head
+                else "raw_byte" if "ILb1E" in head else "class_id")
         ins, labels, pending = [], {}, []
         for line in part.splitlines():
             m = re.match(r"^\s*(\.L_x_\d+):", line)
@@ -232,16 +264,17 @@ def sass_loop_mix(lib_path) -> dict:
         if best is None:
             out[name] = {"error": "no loop with 32-bit LDS found"}
             continue
-        pairs = best[0] / 2
+        steps = best[0] / reads_per_unit
         kinds = {"lop3": 0, "shift": 0, "lds": 0, "other": 0}
         for op in best[1]:
             kind = ("lop3" if op.startswith("LOP3")
                     else "shift" if op.startswith(("SHF", "IMAD.SHL"))
                     else "lds" if op.startswith("LDS") else "other")
             kinds[kind] += 1
-        out[name] = {"pairs_per_iteration": pairs,
-                     "instructions_per_pair": len(best[1]) / pairs,
-                     **{k + "_per_pair": v / pairs for k, v in kinds.items()}}
+        out[name] = {"%ss_per_iteration" % unit: steps,
+                     "instructions_per_%s" % unit: len(best[1]) / steps,
+                     **{"%s_per_%s" % (k, unit): v / steps
+                        for k, v in kinds.items()}}
     return out
 
 
@@ -299,7 +332,7 @@ def phase_kernel(cr, dev: torch.device) -> dict:
                                        state=state, match=match)
                 tok_bytes = 4
             ms = device_ms(fn)
-            b = bound(len_np, L, W, K1, tok_bytes)
+            b = bound(len_np, L, W, K1, tok_bytes, carried=True)
             row[name] = {"ms": ms, "max_abs_err": err, **b,
                          "parity": "bit-identical"}
             log("kernel pair_scan[%s] B=%d L=%d W=%d K1=%d: bit-identical "
@@ -377,7 +410,33 @@ def run_pipeline(pl, requests):
     return out
 
 
-def phase_pipeline(cr, dev: torch.device) -> dict:
+def verdict_key(v) -> str:
+    """What must agree between two verdicts, as JSON (so a child process
+    can hand it over)."""
+    return json.dumps([v.request_id, v.attack, v.blocked, sorted(v.rule_ids),
+                       v.score, v.classes])
+
+
+def check_verdicts(what: str, got, want_keys) -> None:
+    bad = [(a.request_id, verdict_key(a), b)
+           for a, b in zip(got, want_keys) if verdict_key(a) != b]
+    if len(got) != len(want_keys) or bad:
+        raise SystemExit("%s: verdicts differ between cuda and cpu on %d "
+                         "requests, first: %s" % (what, len(bad), bad[:1]))
+    if any(v.fail_open for v in got):
+        raise SystemExit("%s: a cuda verdict failed open" % what)
+
+
+def bucket_inputs(pl, requests):
+    """The (tokens, lengths) of every launch a pipeline's run over
+    ``requests`` made: its own bucketing of the same batches, one launch
+    per bucket."""
+    return [(tok, ln) for i in range(0, len(requests), BATCH)
+            for tok, ln, _, _ in pl._build_scan_buckets(
+                requests[i:i + BATCH])[0]]
+
+
+def phase_pipeline(cr, dev: torch.device):
     from ingress_plus_tpu_torch.models.pipeline import (
         DetectionPipeline,
         PipelineStats,
@@ -405,20 +464,9 @@ def phase_pipeline(cr, dev: torch.device) -> dict:
     if launches <= 0:
         raise SystemExit("the cuda pipeline never launched the kernel")
     t1 = time.perf_counter()
-    want = run_pipeline(cpu, requests)
+    want = [verdict_key(v) for v in run_pipeline(cpu, requests)]
     cpu_wall = time.perf_counter() - t1
-
-    def key(v):
-        return (v.request_id, v.attack, v.blocked, sorted(v.rule_ids),
-                v.score, v.classes)
-
-    bad = [(a.request_id, key(a), key(b))
-           for a, b in zip(got, want) if key(a) != key(b)]
-    if len(got) != len(requests) or bad:
-        raise SystemExit("verdicts differ between cuda and cpu pipelines "
-                         "on %d requests, first: %s" % (len(bad), bad[:1]))
-    if any(v.fail_open for v in got):
-        raise SystemExit("a cuda verdict failed open")
+    check_verdicts("pallas3 pipeline", got, want)
     st = gpu.stats
     batches = -(-len(requests) // BATCH)
     res = {
@@ -444,96 +492,422 @@ def phase_pipeline(cr, dev: torch.device) -> dict:
         "stage included; prep %.3fs engine %.3fs confirm %.3fs)"
         % (len(requests), launches, res["req_per_s_confirm_included"],
            res["prep_s"], res["engine_s"], res["confirm_s"]))
-    # the (tokens, lengths) of every launch the main path made: the
-    # pipeline's own bucketing of the same batches, one launch per bucket
-    inputs = [(tok, ln) for i in range(0, len(requests), BATCH)
-              for tok, ln, _, _ in gpu._build_scan_buckets(
-                  requests[i:i + BATCH])[0]]
+    inputs = bucket_inputs(gpu, requests)
     if len(inputs) != launches:
         raise SystemExit("the main path launched the kernel %d times for "
                          "%d buckets" % (launches, len(inputs)))
-    return res, inputs
+    return res, inputs, requests, want
 
 
-def phase_main_shapes(tables, inputs, dev: torch.device) -> dict:
-    """The kernel at each launch of the main path, on that launch's own
-    bucket (raw-byte configuration, as ``pallas3`` runs it): parity with
-    the plain version, device time, the plain version's time and the
-    bound.  Totals are one pass over the main path's launches."""
-    from ingress_plus_tpu_torch.ops.pair_scan import ByteScanner
-    from ingress_plus_tpu_torch.ops.scan import scan_pairs
+def retime_launches(label: str, kernel_fn, plain_fn, tables, inputs,
+                    dev: torch.device, kernel: str, inner: int = 20,
+                    reps: int = 10) -> dict:
+    """A kernel at each launch a path made, on that launch's own inputs
+    ``(tokens, lengths[, state, match])``: parity with the plain version
+    (match and state), device time, the plain version's time (CUDA events
+    around one host-driven call, the same call that gives the parity
+    reference) and the bound.  Totals are one pass over the path's
+    launches."""
+    from ingress_plus_tpu_torch.ops.scan import from_numpy_u32
 
-    scanner = ByteScanner(tables)
     W, K1 = tables.n_words, tables.class_table.shape[0]
     by_shape: dict = {}
-    for tok_np, len_np in inputs:
-        toks = torch.from_numpy(np.ascontiguousarray(tok_np)).to(dev)
-        lens = torch.from_numpy(np.asarray(len_np, np.int32)).to(dev)
-        m, s = scanner(toks, lens)
-        m_ref, s_ref = scan_pairs(tables, toks, lens)
+    for inp in inputs:
+        tok_np, len_np = inp[0], np.asarray(inp[1], np.int32)
+        args = [torch.from_numpy(np.ascontiguousarray(tok_np)).to(dev),
+                torch.from_numpy(len_np).to(dev)]
+        carried = len(inp) > 2
+        if carried:
+            args += [from_numpy_u32(inp[2], dev), from_numpy_u32(inp[3], dev)]
+        m, s = kernel_fn(*args)
         torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        m_ref, s_ref = plain_fn(*args)
+        b.record()
+        b.synchronize()
+        B, L = args[0].shape
         if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
-            raise SystemExit("kernel disagrees with scan_pairs on a main-path "
-                             "bucket B=%d L=%d" % tuple(toks.shape))
-        B, L = toks.shape
-        b = bound(np.asarray(len_np), L, W, K1, 1)
+            raise SystemExit("%s: kernel disagrees with its plain version on "
+                             "a launch B=%d L=%d" % (label, B, L))
+        bd = bound(len_np, L, W, K1, 1, carried, kernel)
         agg = by_shape.setdefault("%dx%d" % (B, L), {
             "B": B, "L": L, "launches": 0, "ms": 0.0, "plain_ms": 0.0,
             "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
         agg["launches"] += 1
-        agg["ms"] += device_ms(lambda: scanner(toks, lens), reps=10)
-        agg["plain_ms"] += time_ms(lambda: scan_pairs(tables, toks, lens),
-                                   reps=1, warmup=0)
+        agg["ms"] += device_ms(lambda: kernel_fn(*args), inner=inner,
+                               reps=reps)
+        agg["plain_ms"] += a.elapsed_time(b)
         for k in ("bound_ms", "ops_ms", "bytes_ms"):
-            agg[k] += b[k]
+            agg[k] += bd[k]
     total = {k: sum(a[k] for a in by_shape.values())
              for k in ("launches", "ms", "plain_ms", "bound_ms", "ops_ms",
                        "bytes_ms")}
     total["bound_by"] = ("operations" if total["ops_ms"] >= total["bytes_ms"]
                          else "bytes")
-    for key, a in sorted(by_shape.items(), key=lambda kv: kv[1]["L"]):
-        log("main path B=%d L=%d: %d launches, bit-identical; %.4f ms device "
+    for key, a in sorted(by_shape.items(),
+                         key=lambda kv: (kv[1]["L"], kv[1]["B"])):
+        log("%s B=%d L=%d: %d launches, bit-identical; %.4f ms device "
             "(plain %.3f ms, bound %.5f ms, %.1fx)"
-            % (a["B"], a["L"], a["launches"], a["ms"], a["plain_ms"],
+            % (label, a["B"], a["L"], a["launches"], a["ms"], a["plain_ms"],
                a["bound_ms"], a["ms"] / a["bound_ms"]))
-    log("main path total: %d launches, %.4f ms device (plain %.1f ms, "
-        "bound %.5f ms by %s)" % (total["launches"], total["ms"],
-                                  total["plain_ms"], total["bound_ms"],
-                                  total["bound_by"]))
+    log("%s total: %d launches, %.4f ms device (plain %.1f ms, bound %.5f "
+        "ms by %s)" % (label, total["launches"], total["ms"],
+                       total["plain_ms"], total["bound_ms"],
+                       total["bound_by"]))
     return {"shapes": by_shape, "total": total}
 
 
+def phase_main_shapes(tables, inputs, dev: torch.device) -> dict:
+    """The pair kernel at each launch of the main path (raw-byte
+    configuration, as ``pallas3`` runs it)."""
+    from ingress_plus_tpu_torch.ops.pair_scan import ByteScanner
+    from ingress_plus_tpu_torch.ops.scan import scan_pairs
+
+    return retime_launches(
+        "main path", ByteScanner(tables),
+        lambda t, n: scan_pairs(tables, t, n), tables, inputs, dev, "pair")
+
+
+def phase_step_kernel(tables, dev: torch.device) -> dict:
+    """The step kernel against ``scan_bytes`` at B=1024 x L in SCAN_LS
+    (ragged lengths, carried state and sticky match), then the edge
+    shapes and the chained carry."""
+    from ingress_plus_tpu_torch.ops.scan import from_numpy_u32, scan_bytes
+    from ingress_plus_tpu_torch.ops.step_scan import StepScanner
+
+    scanner = StepScanner(tables)
+    W, K1 = tables.n_words, tables.class_table.shape[0]
+    rng = np.random.default_rng(SEED + 4)
+    shapes = []
+    for L in SCAN_LS:
+        toks_np, len_np, match_np, state_np = scan_inputs(L, W, rng)
+        toks = torch.from_numpy(toks_np).to(dev)
+        lens = torch.from_numpy(len_np).to(dev)
+        match = from_numpy_u32(match_np, dev)
+        state = from_numpy_u32(state_np, dev)
+        m_ref, s_ref = scan_bytes(tables, toks, lens, state, match)
+        m, s = scanner(toks, lens, state, match)
+        torch.cuda.synchronize()
+        err = max(int((m.long() - m_ref.long()).abs().max()),
+                  int((s.long() - s_ref.long()).abs().max()))
+        if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
+            raise SystemExit(
+                "kernel step_scan disagrees with scan_bytes at L=%d: match "
+                "diff words=%d state diff words=%d"
+                % (L, int((m != m_ref).sum()), int((s != s_ref).sum())))
+        plain_ms = time_ms(lambda: scan_bytes(tables, toks, lens, state,
+                                              match),
+                           reps=2 if L >= 8192 else 5)
+        ms = device_ms(lambda: scanner(toks, lens, state, match))
+        b = bound(len_np, L, W, K1, 1, carried=True, kernel="step")
+        shapes.append({"B": SCAN_B, "L": L, "ms": ms, "plain_ms": plain_ms,
+                       "max_abs_err": err, **b, "parity": "bit-identical"})
+        log("kernel step_scan B=%d L=%d W=%d K1=%d: bit-identical "
+            "match+state; %.4f ms device (plain %.3f ms, bound %.4f ms by "
+            "%s/%s, %.2fx)" % (SCAN_B, L, W, K1, ms, plain_ms, b["bound_ms"],
+                               b["bound_by"], b["pipe"], ms / b["bound_ms"]))
+    return {"shapes": shapes, "edges": step_edges(tables, rng),
+            "chain": chained_carry(tables, rng)}
+
+
+def step_edges(tables, rng: np.random.Generator) -> str:
+    """A row count that is no multiple of 8, an odd L, and the largest
+    class table (K+1 = 257: the raw byte table plus the dead row, reached
+    through the identity LUT, so raw bytes are the class ids), which needs
+    more than 48 KB of shared memory.  Bit-identical or fail."""
+    from ingress_plus_tpu_torch.ops.scan import from_numpy_u32, scan_bytes
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+
+    dev = tables.byte_table.device
+    B, L, W = 1001, 333, tables.n_words
+    toks = torch.from_numpy(
+        rng.integers(0, 256, (B, L), dtype=np.uint8)).to(dev)
+    lens_np = rng.integers(-2, L + 3, B).astype(np.int32)
+    lens_np[:4] = [0, L, L - 1, 1]
+    lens = torch.from_numpy(lens_np).to(dev)
+    state = from_numpy_u32(
+        rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32), dev)
+    match = from_numpy_u32(
+        rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
+        & np.uint32(0x01010101), dev)
+    m, s = StepScanner(tables)(toks, lens, state, match)
+    m_ref, s_ref = scan_bytes(tables, toks, lens, state, match)
+    raw = torch.cat([tables.byte_table,
+                     torch.zeros_like(tables.byte_table[:1])]).contiguous()
+    ident = torch.arange(257, dtype=torch.int32, device=dev)
+    m2, s2 = STEP_SCAN(toks, lens, raw, tables.init_mask, tables.final_mask,
+                       byte_class=ident, state=state, match=match)
+    torch.cuda.synchronize()
+    for name, (a, b) in {"odd_B_odd_L": ((m, s), (m_ref, s_ref)),
+                         "k1_257": ((m2, s2), (m_ref, s_ref))}.items():
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise SystemExit("kernel step_scan edge case %s disagrees with "
+                             "scan_bytes" % name)
+    log("kernel step_scan edges: B=%d odd L=%d (lengths below 0 and past "
+        "L), K+1=257 class table: bit-identical match+state" % (B, L))
+    return "bit-identical: B=%d, odd L=%d, K+1=257" % (B, L)
+
+
+def chained_carry(tables, rng: np.random.Generator) -> str:
+    """Rows cut at ragged points (0, 1, odd, the whole row) and scanned in
+    two calls, the first call's (state, match) carried into the second,
+    must end in the words of one whole-row call, which must equal
+    ``scan_bytes``.  A kernel that zeroed short rows' state would pass
+    every match check and fail here."""
+    from ingress_plus_tpu_torch.ops.scan import from_numpy_u32, scan_bytes
+    from ingress_plus_tpu_torch.ops.step_scan import StepScanner
+
+    dev = tables.byte_table.device
+    L, W = 2048, tables.n_words
+    toks_np, len_np, match_np, state_np = scan_inputs(L, W, rng)
+    n = np.clip(len_np, 0, L)
+    cut = (rng.random(n.shape) * (n + 1)).astype(np.int32)
+    cut[:8] = [0, 0, 1, min(1, n[3]), n[4], n[5] // 2 | 1, 0, n[7]]
+    cut = np.minimum(cut, n)
+    rest = np.zeros_like(toks_np)
+    for i in range(n.shape[0]):
+        rest[i, :n[i] - cut[i]] = toks_np[i, cut[i]:n[i]]
+    scanner = StepScanner(tables)
+    t = torch.from_numpy(toks_np).to(dev)
+    state = from_numpy_u32(state_np, dev)
+    match = from_numpy_u32(match_np, dev)
+    m1, s1 = scanner(t, torch.from_numpy(cut).to(dev), state, match)
+    m2, s2 = scanner(torch.from_numpy(rest).to(dev),
+                     torch.from_numpy((n - cut).astype(np.int32)).to(dev),
+                     s1, m1)
+    whole = torch.from_numpy(n.astype(np.int32)).to(dev)
+    wm, ws = scanner(t, whole, state, match)
+    rm, rs = scan_bytes(tables, t, whole, state, match)
+    torch.cuda.synchronize()
+    if not (torch.equal(m2, wm) and torch.equal(s2, ws)):
+        raise SystemExit("step_scan chained carry differs from the whole "
+                         "scan: match diff words=%d state diff words=%d"
+                         % (int((m2 != wm).sum()), int((s2 != ws).sum())))
+    if not (torch.equal(wm, rm) and torch.equal(ws, rs)):
+        raise SystemExit("step_scan whole scan differs from scan_bytes")
+    log("kernel step_scan chained carry: B=%d L=%d rows cut at ragged "
+        "points, two calls with the state carried == one call == scan_bytes "
+        "(match+state)" % (n.shape[0], L))
+    return "bit-identical: B=%d L=%d, two calls == one call" % (n.shape[0], L)
+
+
+def phase_pallas_pipeline(cr, dev: torch.device, requests, want) -> dict:
+    """The batch path on the step kernel (``scan_impl="pallas"``) over
+    phase 3's requests, against phase 3's CPU verdicts."""
+    from ingress_plus_tpu_torch.models.pipeline import (
+        DetectionPipeline,
+        PipelineStats,
+    )
+    from ingress_plus_tpu_torch.ops.scan import scan_bytes
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+
+    gpu = DetectionPipeline(cr, device=dev, scan_impl="pallas",
+                            fail_open=False)
+    run_pipeline(gpu, requests[:BATCH])          # warm-up (not counted)
+    torch.cuda.synchronize()
+    gpu.stats = PipelineStats()
+    STEP_SCAN.launches = 0                       # count this path only
+    t0 = time.perf_counter()
+    got = run_pipeline(gpu, requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = STEP_SCAN.launches
+    check_verdicts("pallas pipeline", got, want)
+    inputs = bucket_inputs(gpu, requests)
+    if launches <= 0 or launches != len(inputs):
+        raise SystemExit("the pallas pipeline launched the step kernel %d "
+                         "times for %d buckets" % (launches, len(inputs)))
+    st = gpu.stats
+    res = {"requests": len(requests), "identical_verdicts": len(requests),
+           "launches": launches, "wall_s": wall,
+           "req_per_s_confirm_included": len(requests) / wall,
+           "prep_s": st.prep_us / 1e6, "engine_s": st.engine_us / 1e6,
+           "confirm_s": st.confirm_us / 1e6}
+    log("pallas pipeline: %d requests, identical verdicts to the cpu "
+        "pipeline, %d step-kernel launches (= buckets); %.1f req/s (host "
+        "clock, confirm included; engine %.3fs)"
+        % (len(requests), launches, res["req_per_s_confirm_included"],
+           res["engine_s"]))
+    tables = gpu.engine.tables.scan
+    res["retimed"] = retime_launches(
+        "pallas path", StepScanner(tables),
+        lambda t, n: scan_bytes(tables, t, n), tables, inputs, dev, "step")
+    return res
+
+
+def phase_stream(cr, dev: torch.device) -> dict:
+    """Seven concurrent 1 MiB streams through ``StreamEngine`` on the card
+    and on the CPU (BASELINE config #5), then every wave again on its own
+    inputs."""
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.ops.scan import scan_bytes
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
+    from ingress_plus_tpu_torch.serve.stream import StreamEngine
+    from ingress_plus_tpu_torch.utils.stream_corpus import (
+        drive_streams,
+        stream_cases,
+    )
+
+    class RecordingEngine(StreamEngine):
+        """Keeps each wave's inputs, to re-run every launch on its own."""
+
+        def __init__(self, pipeline):
+            super().__init__(pipeline)
+            self.recorded = []
+
+        def _scan_wave(self, scanner, tokens, lengths, state, match):
+            self.recorded.append((tokens.copy(), lengths.copy(),
+                                  state.copy(), match.copy()))
+            return super()._scan_wave(scanner, tokens, lengths, state, match)
+
+    cases = stream_cases(STREAM_BODY, STREAM_CHUNK, SEED)
+    wire = sum(len(c.body) for c in cases)
+    gpu = DetectionPipeline(cr, device=dev, fail_open=False)
+    warm = stream_cases(4096, 2048, SEED + 1)[:2]
+    drive_streams(StreamEngine(gpu), warm, 2048)   # warm-up (not counted)
+    torch.cuda.synchronize()
+    eng = RecordingEngine(gpu)
+    STEP_SCAN.launches = 0                          # count this path only
+    t0 = time.perf_counter()
+    got = drive_streams(eng, cases, STREAM_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = STEP_SCAN.launches
+    st = eng.stats
+    if launches <= 0 or launches != st.waves or launches != len(eng.recorded):
+        raise SystemExit("the stream lane launched the step kernel %d times "
+                         "for %d waves" % (launches, st.waves))
+    # the CPU reference runs in a child process (one thread) while this
+    # one re-times the waves; it is waited for, or killed, before return
+    child = subprocess.Popen(
+        [sys.executable, __file__, "--stream-cpu-reference"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        tables = gpu.engine.tables.scan
+        retimed = retime_launches(
+            "stream wave", eng.scanner(),
+            lambda t, n, s, m: scan_bytes(tables, t, n, s, m), tables,
+            eng.recorded, dev, "step", inner=10, reps=5)
+        out, err = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise SystemExit("the cpu stream reference failed:\n" + err[-4000:])
+    ref = json.loads(out.strip().splitlines()[-1])
+    check_verdicts("stream lane", got, ref["keys"])
+    missed = [c.name for c, v in zip(cases, got) if v.attack != c.attack]
+    if missed:
+        raise SystemExit("stream lane: planted attacks missed or benign "
+                         "bodies flagged: %s" % missed)
+    if ref["waves"] != st.waves:
+        raise SystemExit("the cpu stream lane ran %d waves, the card %d"
+                         % (ref["waves"], st.waves))
+    cpu_wall = ref["wall_s"]
+    kernel_s = retimed["total"]["ms"] / 1e3
+    res = {
+        "streams": len(cases), "body_bytes": STREAM_BODY,
+        "chunk_bytes": STREAM_CHUNK, "wire_bytes": wire,
+        "identical_verdicts": len(cases),
+        "verdicts": {c.name: [v.attack, v.fail_open, sorted(v.rule_ids)]
+                     for c, v in zip(cases, got)},
+        "waves": st.waves, "wave_rows": st.wave_rows,
+        "scanned_bytes": st.scanned_bytes, "launches": launches,
+        "wall_s": wall, "mb_per_s_confirm_included": wire / wall / 1e6,
+        "split_s": {
+            "begin_prefilter_feed": wall - (st.scan_us + st.finish_us) / 1e6,
+            "scan_host": (st.scan_us - st.wave_us) / 1e6,
+            "wave_round_trip": st.wave_us / 1e6,
+            "of_which_kernel_device": kernel_s,
+            "finish_confirm": st.finish_us / 1e6},
+        "cpu_wall_s": cpu_wall, "cpu_mb_per_s": wire / cpu_wall / 1e6,
+        "retimed": retimed,
+    }
+    log("stream lane: %d streams x %d B in %d B chunks, identical verdicts "
+        "cuda vs cpu, planted attacks found, none failed open; %d waves "
+        "(%d rows, %d scanned bytes) = %d step-kernel launches; %.3f MB/s "
+        "on the card (host clock, confirm included; split %s); cpu %.3f "
+        "MB/s" % (len(cases), STREAM_BODY, STREAM_CHUNK, st.waves,
+                  st.wave_rows, st.scanned_bytes, launches,
+                  res["mb_per_s_confirm_included"],
+                  json.dumps(res["split_s"]), res["cpu_mb_per_s"]))
+    return res
+
+
+def stream_cpu_reference() -> int:
+    """The stream lane of phase 6 on the CPU (the plain ``scan_bytes``),
+    one thread; prints its verdict keys, waves and wall time as JSON."""
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.serve.stream import StreamEngine
+    from ingress_plus_tpu_torch.utils.stream_corpus import (
+        drive_streams,
+        stream_cases,
+    )
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    torch.set_num_threads(1)
+    cpu = DetectionPipeline(load_pack(), device="cpu", fail_open=False)
+    eng = StreamEngine(cpu)
+    t0 = time.perf_counter()
+    got = drive_streams(eng, stream_cases(STREAM_BODY, STREAM_CHUNK, SEED),
+                        STREAM_CHUNK)
+    print(json.dumps({"keys": [verdict_key(v) for v in got],
+                      "waves": eng.stats.waves,
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--stream-cpu-reference"]:
+        return stream_cpu_reference()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, build_library
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
     from ingress_plus_tpu_torch.weights import load_pack
 
     t0 = time.perf_counter()
     log("torch %s cuda %s on %s (%d cards)" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
-    log("building %s" % build_library(verbose=True).name)
-    PAIR_SCAN.library(torch.device("cuda"))
+    kernels = (PAIR_SCAN, STEP_SCAN)
+    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source
+        libs = list(pool.map(lambda k: k.lib.build(verbose=True), kernels))
+    dev = torch.device("cuda")
+    for k, lib in zip(kernels, libs):
+        k.lib.load(dev)
+        log("built %s" % lib.name)
     log("build %.1fs" % (time.perf_counter() - t0))
     smi = nvidia_smi_line()
     cr = load_pack()
     log("pack: %d rules, W=%d words, %d factors" % (
         cr.n_rules, cr.tables.n_words, cr.tables.n_factors))
-    dev = torch.device("cuda")
     kern = phase_kernel(cr, dev)
-    pipe, inputs = phase_pipeline(cr, dev)
+    pipe, inputs, requests, want = phase_pipeline(cr, dev)
     main_path = phase_main_shapes(kern["tables"], inputs, dev)
-    sass = sass_loop_mix(build_library())
-    log("sass pair loop: %s" % json.dumps(sass))
+    step = phase_step_kernel(kern["tables"], dev)
+    pallas = phase_pallas_pipeline(cr, dev, requests, want)
+    stream = phase_stream(cr, dev)
+    sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
+            "step_scan": sass_loop_mix(libs[1], "byte", 1)}
+    log("sass loops: %s" % json.dumps(sass))
     detail = {
         "card": smi, "pipeline": pipe, "main_path": main_path,
         "scan_shapes": kern["shapes"], "edges": kern["edges"],
+        "step_scan": step, "pallas_pipeline": pallas, "stream": stream,
         "sass": sass, "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
+    step_paths = {"stream": stream["retimed"]["total"],
+                  "pallas_batch": pallas["retimed"]["total"]}
+    step_tot = {k: sum(p[k] for p in step_paths.values())
+                for k in ("launches", "ms", "plain_ms", "bound_ms", "ops_ms",
+                          "bytes_ms")}
     print(json.dumps({"kernels": [{
         "name": "pair_scan",
         "route": "cuda",
@@ -552,6 +926,27 @@ def main() -> int:
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": tot["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "step_scan",
+        "route": "cuda",
+        "source": "ingress_plus_tpu_torch/csrc/step_scan.cu",
+        "replaces": "ingress_plus_tpu/ops/pallas_scan.py:49",
+        "parity": "bit-identical match and state: B=%d, L in %s; edges %s; "
+                  "chained carry %s; every stream wave and pallas bucket"
+                  % (SCAN_B, list(SCAN_LS), step["edges"], step["chain"]),
+        "launches": stream["launches"] + pallas["launches"],
+        "launches_by_path": {"stream": stream["launches"],
+                             "pallas_batch": pallas["launches"]},
+        "max_abs_err": max(s["max_abs_err"] for s in step["shapes"]),
+        "shape": "the stream lane's %d waves and the pallas batch path's %d "
+                 "launches, summed" % (stream["launches"],
+                                       pallas["launches"]),
+        "ms": step_tot["ms"],
+        "plain_ms": step_tot["plain_ms"],
+        "bound_ms": step_tot["bound_ms"],
+        "bound_by": ("operations" if step_tot["ops_ms"] >= step_tot["bytes_ms"]
+                     else "bytes"),
         "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)

@@ -1,7 +1,9 @@
 """Packed bit-parallel shift-and (bitap) tables.
 
 The subset of ``ingress_plus_tpu/compiler/bitap.py`` the runtime needs:
-the ``BitapTables`` container a compiled pack loads into.  The scan
+the ``BitapTables`` container a compiled pack loads into, the host-side
+factor→rule mapping the stream lane finishes with, and the numpy oracle
+``reference_scan``.  The scan
 recurrence, evaluated per input byte (ops/scan.py):
 
     S' = ((S << 1) | INIT) & B[byte]          # uint32 words, lane-parallel
@@ -72,4 +74,35 @@ class BitapTables:
     @property
     def max_factor_len(self) -> int:
         return int(self.factor_len.max()) if self.n_factors else 0
+
+
+def reference_scan(tables: BitapTables, data: bytes) -> np.ndarray:
+    """Pure-numpy oracle for the scan recurrence: the sticky match mask
+    M (n_words,) uint32 after scanning ``data`` from the zero state."""
+    S = np.zeros((tables.n_words,), dtype=np.uint32)
+    M = np.zeros((tables.n_words,), dtype=np.uint32)
+    B = tables.byte_table
+    init = tables.init_mask
+    final = tables.final_mask
+    for byte in data:
+        S = ((S << np.uint32(1)) | init) & B[byte]
+        M |= S & final
+    return M
+
+
+def matches_to_factors(tables: BitapTables, M: np.ndarray) -> np.ndarray:
+    """Match mask → boolean (n_factors,) factor-hit vector."""
+    return ((M[tables.factor_word] >> tables.factor_bit.astype(np.uint32))
+            & 1).astype(bool)
+
+
+def factors_to_rules(tables: BitapTables,
+                     factor_hits: np.ndarray) -> np.ndarray:
+    """Factor hits → boolean (n_rules,) rule prefilter-hit vector."""
+    n_rules = tables.rule_nfactors.shape[0]
+    out = np.zeros((n_rules,), dtype=bool)
+    for f in np.nonzero(factor_hits)[0]:
+        lo, hi = tables.factor_rule_indptr[f], tables.factor_rule_indptr[f + 1]
+        out[tables.factor_rule_ids[lo:hi]] = True
+    return out
 

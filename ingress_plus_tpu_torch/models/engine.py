@@ -2,7 +2,8 @@
 
 The port of ``ingress_plus_tpu/models/engine.py``.  A padded batch of
 normalized scan rows goes through the bitap scan (ops/scan.py plain, or
-the CUDA pair-scan kernel, ops/pair_scan.py), then one mapping pass turns
+a CUDA kernel: ops/pair_scan.py or ops/step_scan.py), then one mapping
+pass turns
 factor bits into request×rule prefilter hits, classes and scores.
 
 Shapes (per length bucket):
@@ -29,6 +30,7 @@ import torch
 from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
 from ingress_plus_tpu_torch.compiler.seclang import CLASSES
 from ingress_plus_tpu_torch.ops.pair_scan import ByteScanner, PairScanner
+from ingress_plus_tpu_torch.ops.step_scan import StepScanner
 from ingress_plus_tpu_torch.ops.scan import (
     ScanTables,
     from_numpy_u32,
@@ -258,12 +260,14 @@ class DetectionEngine:
     * ``"pair"`` — the plain PyTorch ``scan_pairs``; CPU devices only;
     * ``"pallas3"`` — the CUDA pair-scan kernel, raw-byte configuration
       (the default on ``cuda``);
-    * ``"pallas2"`` — the same kernel, class-id configuration.
+    * ``"pallas2"`` — the same kernel, class-id configuration;
+    * ``"pallas"`` — the CUDA per-byte step-scan kernel (one step per
+      byte, exact state), the stream lane's scan.
 
     A kernel implementation on a CPU device raises, as does ``"pair"``
     on a CUDA device."""
 
-    SCAN_IMPLS = ("pair", "pallas2", "pallas3")
+    SCAN_IMPLS = ("pair", "pallas", "pallas2", "pallas3")
 
     def __init__(self, cr: CompiledRuleset, scan_impl: Optional[str] = None,
                  device: DeviceLike = None):
@@ -276,8 +280,8 @@ class DetectionEngine:
         if (scan_impl == "pair") != (self.device.type == "cpu"):
             raise ValueError(
                 "scan_impl %r cannot run on a %s device: the kernel "
-                "implementations (pallas2, pallas3) need CUDA, the plain "
-                "'pair' scan is the CPU path"
+                "implementations (pallas, pallas2, pallas3) need CUDA, the "
+                "plain 'pair' scan is the CPU path"
                 % (scan_impl, self.device.type))
         if self.device.type == "cuda":
             # the mapping products must be exact float32, never TF32
@@ -299,6 +303,8 @@ class DetectionEngine:
             self._scanner = ByteScanner(self.tables.scan)
         elif self.scan_impl == "pallas2":
             self._scanner = PairScanner(self.tables.scan)
+        elif self.scan_impl == "pallas":
+            self._scanner = StepScanner(self.tables.scan)
 
     def swap_ruleset(self, cr: CompiledRuleset) -> None:
         """Install a new pack generation on the same device and impl."""

@@ -91,6 +91,9 @@ class PipelineStats:
     confirm_memo_hits: int = 0
     confirm_memo_misses: int = 0
 
+    def count_fail_open(self, n: int = 1) -> None:
+        self.fail_open += n
+
 
 class DetectionPipeline:
     # Fixed length tiers; rows longer than the last tier are TRUNCATED at

@@ -124,7 +124,7 @@ def test_scan_impl_device_rules(engines):
     """Kernel impls need CUDA; the plain impl is the CPU path."""
     _, port_engine = engines
     cr = port_engine.ruleset
-    for impl in ("pallas2", "pallas3"):
+    for impl in ("pallas", "pallas2", "pallas3"):
         with pytest.raises(ValueError, match="cannot run on a cpu"):
             tengine.DetectionEngine(cr, scan_impl=impl, device=CPU)
     with pytest.raises(ValueError, match="unknown scan_impl"):

@@ -61,13 +61,24 @@ from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
 from ingress_plus_tpu_torch.serve.normalize import Request
 from ingress_plus_tpu_torch.weights import load_pack
 pl = DetectionPipeline(load_pack(), device="cpu")
+from ingress_plus_tpu_torch.serve.stream import StreamEngine
 v = pl.detect([Request(uri="/q?id=1'+UNION+SELECT+password+FROM+users--",
                        headers={"host": "a.example"}, request_id="r1"),
                Request(uri="/index.html", headers={"host": "a.example"},
                        request_id="r2")])
+eng = StreamEngine(pl)
+meta = Request(method="POST", uri="/upload", headers={"host": "a.example"},
+               request_id="s1")
+st = eng.begin(meta)
+st.base_hits = pl.prefilter([meta])[0]
+for chunk in (b"comment=hello+1'+UNI", b"ON+SELECT+password+FROM+users--"):
+    eng.scan(st.feed(chunk))
+eng.scan(st.flush())
+v.append(eng.finish(st))
 print(json.dumps({
     "verdicts": [[x.request_id, x.attack, x.blocked, x.fail_open]
                  for x in v],
+    "waves": eng.stats.waves,
     "modules": sorted(m for m in sys.modules
                       if m == "ingress_plus_tpu"
                       or m.startswith("ingress_plus_tpu.")
@@ -86,15 +97,18 @@ def test_port_imports_and_detects_with_jax_absent():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["modules"] == []
     assert out["verdicts"] == [["r1", True, True, False],
-                               ["r2", False, False, False]]
+                               ["r2", False, False, False],
+                               ["s1", True, True, False]]
+    assert out["waves"] >= 1
 
 
 def test_kernel_impl_on_cpu_device_raises():
     from ingress_plus_tpu_torch.models.engine import DetectionEngine
     from ingress_plus_tpu_torch.weights import load_pack
 
-    with pytest.raises(ValueError, match="need CUDA"):
-        DetectionEngine(load_pack(), scan_impl="pallas3", device="cpu")
+    for impl in ("pallas", "pallas3"):
+        with pytest.raises(ValueError, match="need CUDA"):
+            DetectionEngine(load_pack(), scan_impl=impl, device="cpu")
 
 
 def test_entry_point_without_device_raises_without_cuda():

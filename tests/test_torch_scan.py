@@ -1,8 +1,8 @@
 """The port's plain scans against the JAX package's, on the CPU.
 
 Same seeded rows through ``ingress_plus_tpu_torch.ops.scan`` and
-``ingress_plus_tpu.ops.scan`` (plus the Pallas pair kernel in interpret
-mode).  Tolerance: none — match and state words are integer bit patterns
+``ingress_plus_tpu.ops.scan`` (plus the Pallas pair and byte kernels in
+interpret mode).  Tolerance: none — match and state words are integer bit patterns
 and must be bit-identical.
 """
 
@@ -13,9 +13,11 @@ import torch
 from ingress_plus_tpu.compiler.ruleset import compile_ruleset
 from ingress_plus_tpu.compiler.seclang import parse_seclang
 from ingress_plus_tpu.ops import scan as jscan
-from ingress_plus_tpu.ops.pallas_scan import PallasByteScanner
+from ingress_plus_tpu.ops.pallas_scan import PallasByteScanner, PallasScanner
+from ingress_plus_tpu_torch.compiler.bitap import reference_scan
 from ingress_plus_tpu_torch.ops import pair_scan as tpair
 from ingress_plus_tpu_torch.ops import scan as tscan
+from ingress_plus_tpu_torch.ops import step_scan as tstep
 
 RULES = """
 SecRule ARGS "@rx (?i)union\\s+select" "id:1,phase:2,block,severity:CRITICAL,tag:'attack-sqli'"
@@ -236,3 +238,80 @@ def test_kernel_wrapper_refuses_cpu_tensors(packs):
                         tt.init_mask, tt.final_mask,
                         byte_class=tt.byte_class.to(torch.int32))
     assert tpair.PAIR_SCAN.launches == 0
+
+
+def _carry(B, W, seed):
+    """A seeded carried-in state and a sparse sticky match, uint32."""
+    rng = np.random.default_rng(seed)
+    state = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
+    match = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
+    match[rng.random((B, W)) < 0.9] = 0
+    return state, match
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_step_scanner_matches_scan_kernel(packs, case, carry):
+    """``StepScanner`` on CPU tensors (its plain path) against the JAX
+    ``_scan_kernel`` in interpret mode and ``scan_bytes_jit``: match AND
+    state bit-identical, from the zero state and from a carried one."""
+    jt, tt = packs
+    tokens, lengths = CASES[case]()
+    state = match = None
+    if carry:
+        state, match = _carry(tokens.shape[0], tt.n_words, len(case))
+    km, ks = PallasScanner(jt, TB=8, CL=16, MR=8)(
+        tokens, lengths, state, match, interpret=True)
+    bm, bs = jscan.scan_bytes_jit(jt, tokens, lengths, state, match)
+    m, s = tstep.StepScanner(tt)(
+        _t(tokens), _t(lengths),
+        None if state is None else tscan.from_numpy_u32(state, CPU),
+        None if match is None else tscan.from_numpy_u32(match, CPU))
+    for got, want in ((m, km), (s, ks), (m, bm), (s, bs)):
+        np.testing.assert_array_equal(_u32(got), np.asarray(want))
+    if carry:   # a row of length 0 returns its inputs unchanged
+        empty = np.asarray(lengths) == 0
+        np.testing.assert_array_equal(_u32(s)[empty], state[empty])
+        np.testing.assert_array_equal(_u32(m)[empty], match[empty])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_step_scanner_chained_carry_equals_whole_scan(packs, seed):
+    """Rows split at ragged points (0, 1, odd, the whole row) and scanned
+    in two calls with (state, match) carried end in the same words as one
+    whole-row call — the stream lane's contract — and the match equals
+    the numpy oracle's."""
+    jt, tt = packs
+    rows = _mixed_rows(11, seed=seed)
+    rng = np.random.default_rng(seed)
+    cuts = [int(rng.integers(0, len(r) + 1)) for r in rows]
+    cuts[:4] = [0, 1, min(3, len(rows[2])), len(rows[3])]
+    scanner = tstep.StepScanner(tt)
+    tok, ln = jscan.pad_rows(rows, round_to=64)
+    whole_m, whole_s = scanner(_t(tok), _t(ln))
+    ta, la = jscan.pad_rows([r[:c] for r, c in zip(rows, cuts)], round_to=64)
+    tb, lb = jscan.pad_rows([r[c:] for r, c in zip(rows, cuts)], round_to=64)
+    m1, s1 = scanner(_t(ta), _t(la))
+    m2, s2 = scanner(_t(tb), _t(lb), state=s1, match=m1)
+    assert torch.equal(m2, whole_m) and torch.equal(s2, whole_s)
+    want_m, want_s = jscan.scan_bytes_jit(jt, tok, ln)
+    np.testing.assert_array_equal(_u32(whole_m), np.asarray(want_m))
+    np.testing.assert_array_equal(_u32(whole_s), np.asarray(want_s))
+    cr = compile_ruleset(parse_seclang(RULES))
+    for i, r in enumerate(rows):
+        np.testing.assert_array_equal(_u32(whole_m)[i],
+                                      reference_scan(cr.tables, r))
+    assert _u32(whole_m).any()
+
+
+def test_step_kernel_wrapper_refuses_cpu_tensors(packs):
+    """The step kernel's binding launches only on CUDA tensors and
+    counts no launch otherwise."""
+    _, tt = packs
+    tokens, lengths = _stale_reach_row()
+    before = tstep.STEP_SCAN.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tstep.STEP_SCAN(_t(tokens), _t(lengths), tt.class_table,
+                        tt.init_mask, tt.final_mask,
+                        byte_class=tt.byte_class.to(torch.int32))
+    assert tstep.STEP_SCAN.launches == before == 0
