@@ -3,6 +3,13 @@
 versions.
 
 Run from the repository root:  python3 chip_smoke.py
+(``--kernels-only`` stops after phases 1, 2 and 4 and the segment sweep:
+a quick check of both kernels.)
+
+Both kernels split each row's serial chain into segments
+(``ingress_plus_tpu_torch/ops/segments.py``); every launch below runs at
+the plan's segment length, and every shape the plan splits is also timed
+at one segment (the same kernel unsplit) in the same run.
 
 Phases (any failure ends the run with a non-zero exit code):
 
@@ -13,9 +20,12 @@ Phases (any failure ends the run with a non-zero exit code):
    (``ByteScanner`` raw-byte, ``PairScanner`` class-id) and the plain
    ``ops/scan.py::scan_pairs`` on the same CUDA tensors -- B=1024 seeded
    rows with attack substrings, L in {64, 2048, 16384}, ragged lengths
-   (0, 1, odd, L), a carried-in sticky match and state; then edge shapes
-   (1001 rows, odd L, the largest class table).  Match and state must be
-   bit-identical.
+   (0, 1, odd, L), a carried-in sticky match and state; then B=8 rows
+   at L in {2048, 16384}, which the plan splits, with lengths on segment
+   boundaries (checked split and unsplit); then edge shapes (1001 rows,
+   odd L, the largest class table).  Match and state must be
+   bit-identical.  Then the segment sweep: both kernels at the
+   row-starved shapes, timed at several segment lengths.
 3. The main path: ``DetectionPipeline(device="cuda")`` (scan impl
    ``pallas3``) on the bundled pack at full width, over
    ``generate_corpus(n=2048, seed=20260729)`` plus 10 large-body requests
@@ -27,9 +37,10 @@ Phases (any failure ends the run with a non-zero exit code):
    bit-identical to the plain version, timed.
 4. Step kernel against plain: ``StepScanner`` and the plain
    ``ops/scan.py::scan_bytes`` on the same CUDA tensors, at the shapes of
-   phase 2, on the edge shapes, and on a chained carry (rows split at
-   ragged points, scanned in two calls with the state carried, against one
-   whole-row call).  Match and state must be bit-identical.
+   phase 2 (the split ones included), on the edge shapes, and on a
+   chained carry at B=1024 and at B=8, where the rows are split (rows cut
+   at ragged points, scanned in two calls with the state carried, against
+   one whole-row call).  Match and state must be bit-identical.
 5. The batch path on ``scan_impl="pallas"`` (the step kernel) over the
    requests of phase 3: verdicts identical to phase 3's CPU pipeline, one
    launch per bucket, each launch re-run on its bucket and timed.
@@ -73,6 +84,14 @@ BATCH = 256
 SEED = 20260729
 SCAN_B = 1024
 SCAN_LS = (64, 2048, 16384)
+#: row-starved shapes the segment plan splits (an 8-row bucket or wave)
+SPLIT_B = 8
+SPLIT_LS = (2048, 16384)
+#: the segment sweep: (B, L) of the batch path's and the stream lane's
+#: row-starved launches, each timed at these segment lengths below L
+SWEEP_SHAPES = ((8, 512), (128, 256), (256, 256), (8, 2048), (16, 2048),
+                (32, 2048), (8, 16384))
+SWEEP_GS = (128, 256, 512, 1024, 2048, 4096)
 TIMED_REPS = 25
 #: published H100 SXM figures (the on-chip-measurement guide's table): the
 #: HBM rate, and the 67 TFLOP/s float32 peak = SMs x 128 fp32 lanes x 2
@@ -156,6 +175,14 @@ def device_ms(fn, inner: int = 20, reps: int = TIMED_REPS) -> float:
     return statistics.median(times)
 
 
+def carried(B: int, W: int, rng: np.random.Generator):
+    """A sparse sticky match and a carried state, uint32 (B, W)."""
+    match = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
+    match[rng.random((B, W)) < 0.9] = 0        # sparse sticky bits
+    state = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
+    return match, state
+
+
 def scan_inputs(L: int, W: int, rng: np.random.Generator):
     """B rows of seeded printable bytes with attack substrings spliced
     in, lengths covering 0, 1, odd values and L, a sticky match and a
@@ -170,10 +197,54 @@ def scan_inputs(L: int, W: int, rng: np.random.Generator):
     lengths = rng.integers(0, L + 1, B).astype(np.int32)
     lengths[:6] = [0, 1, 3, L - 1, L, L]
     lengths[6:40:2] |= 1                       # odd lengths
-    match = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
-    match[rng.random((B, W)) < 0.9] = 0        # sparse sticky bits
-    state = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
-    return toks, lengths, match, state
+    return (toks, lengths) + carried(B, W, rng)
+
+
+def split_inputs(L: int, W: int, rng: np.random.Generator):
+    """SPLIT_B rows that the segment plan splits: lengths on segment
+    boundaries (0, 1, G-1, G+1, 2G, 2G+33, L-1, L: odd and even), attack
+    substrings spliced across segment starts, a sticky match and a
+    carried state."""
+    from ingress_plus_tpu_torch.ops.segments import plan_segments
+
+    B, G = SPLIT_B, plan_segments(SPLIT_B, L, W).G
+    toks = rng.integers(32, 127, (B, L), dtype=np.uint8)
+    for i in range(B):
+        a = ATTACKS[i % len(ATTACKS)]
+        at = G * (1 + i % 3) - len(a) // 2 - i % 2
+        toks[i, at:at + len(a)] = np.frombuffer(a, np.uint8)
+    lengths = np.asarray([0, 1, G - 1, G + 1, 2 * G, 2 * G + 33, L - 1, L],
+                         np.int32)
+    return (toks, lengths) + carried(B, W, rng)
+
+
+def forced(kernel, scanner):
+    """``run(tokens, lengths, state=None, match=None, segment=None)``: the
+    scanner's launch of ``kernel`` on raw bytes (its LUT and tiled class
+    table), with the segment length forced when ``segment`` is given --
+    ``L`` is the same launch unsplit."""
+    t = scanner.tables
+
+    def run(tokens, lengths, state=None, match=None, segment=None):
+        return kernel(tokens, lengths, scanner.class_tiles, t.init_mask,
+                      t.final_mask, byte_class=scanner.byte_class,
+                      state=state, match=match, segment=segment)
+    return run
+
+
+def timed_plan(fn, B: int, L: int, W: int, inner: int = 20,
+               reps: int = TIMED_REPS) -> dict:
+    """Device time of ``fn(segment)`` at the plan's segment length and,
+    when the plan splits, at one segment (the same kernel unsplit), one
+    after the other on the same inputs."""
+    from ingress_plus_tpu_torch.ops.segments import plan_segments
+
+    plan = plan_segments(B, L, W)
+    out = {"G": plan.G, "segments": plan.segments,
+           "ms": device_ms(lambda: fn(None), inner, reps)}
+    out["one_segment_ms"] = (device_ms(lambda: fn(L), inner, reps)
+                             if plan.segments > 1 else out["ms"])
+    return out
 
 
 def bound(lengths: np.ndarray, L: int, W: int, K1: int,
@@ -212,12 +283,14 @@ def bound(lengths: np.ndarray, L: int, W: int, K1: int,
 
 
 def sass_loop_mix(lib_path, unit: str, reads_per_unit: int) -> dict:
-    """Instructions per step in each kernel's hottest loop, read from the
+    """Instructions per step in each kernel's scan loop, read from the
     built library's SASS (``cuobjdump -sass``): the innermost loop (a
-    backward branch) with the most shared-memory loads, its steps counted
-    as its 32-bit ``LDS`` (class-table reads) / ``reads_per_unit`` (2 per
-    pair for the pair kernel, 1 per byte for the step kernel).  Says how
-    far the compiled loop is from the recurrence's own count."""
+    backward branch) with the most LOP3 (the recurrence's bitwise work;
+    the loop that maps a window's tokens has the most loads but no LOP3),
+    its steps counted as its 32-bit ``LDS`` (class-table reads) /
+    ``reads_per_unit`` (2 per pair for the pair kernel, 1 per byte for the
+    step kernel).  Says how far the compiled loop is from the
+    recurrence's own count."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         text = subprocess.run([tool, "-sass", str(lib_path)],
@@ -258,21 +331,22 @@ def sass_loop_mix(lib_path, unit: str, reads_per_unit: int) -> dict:
         best = None
         for lo, hi in inner:
             body = [op for a, op, _ in ins if lo <= a <= hi]
+            lop3 = sum(op.startswith("LOP3") for op in body)
             table = sum(op == "LDS" for op in body)
-            if table and (best is None or table > best[0]):
-                best = (table, body)
+            if table and (best is None or lop3 > best[0]):
+                best = (lop3, table, body)
         if best is None:
             out[name] = {"error": "no loop with 32-bit LDS found"}
             continue
-        steps = best[0] / reads_per_unit
+        steps = best[1] / reads_per_unit
         kinds = {"lop3": 0, "shift": 0, "lds": 0, "other": 0}
-        for op in best[1]:
+        for op in best[2]:
             kind = ("lop3" if op.startswith("LOP3")
                     else "shift" if op.startswith(("SHF", "IMAD.SHL"))
                     else "lds" if op.startswith("LDS") else "other")
             kinds[kind] += 1
         out[name] = {"%ss_per_iteration" % unit: steps,
-                     "instructions_per_%s" % unit: len(best[1]) / steps,
+                     "instructions_per_%s" % unit: len(best[2]) / steps,
                      **{"%s_per_%s" % (k, unit): v / steps
                         for k, v in kinds.items()}}
     return out
@@ -294,11 +368,13 @@ def phase_kernel(cr, dev: torch.device) -> dict:
     tables = ScanTables.from_bitap(cr.tables, dev)
     W, K1 = tables.n_words, tables.class_table.shape[0]
     rng = np.random.default_rng(SEED)
-    configs = {"raw_byte": ByteScanner(tables),
-               "class_id": PairScanner(tables)}
+    raw, cid = ByteScanner(tables), PairScanner(tables)
+    raw_run = forced(PAIR_SCAN, raw)
     shapes = []
-    for L in SCAN_LS:
-        toks_np, len_np, match_np, state_np = scan_inputs(L, W, rng)
+    for B, L in ([(SCAN_B, L) for L in SCAN_LS]
+                 + [(SPLIT_B, L) for L in SPLIT_LS]):
+        toks_np, len_np, match_np, state_np = (
+            scan_inputs if B == SCAN_B else split_inputs)(L, W, rng)
         toks = torch.from_numpy(toks_np).to(dev)
         lens = torch.from_numpy(len_np).to(dev)
         match = from_numpy_u32(match_np, dev)
@@ -308,41 +384,77 @@ def phase_kernel(cr, dev: torch.device) -> dict:
         plain_ms = time_ms(lambda: scan_pairs(tables, toks, lens, state,
                                               match),
                            reps=3 if L >= 8192 else 10)
-        row = {"B": SCAN_B, "L": L, "plain_ms": plain_ms}
-        for name, scanner in configs.items():
-            m, s = scanner(toks, lens, state, match)
+        row = {"B": B, "L": L, "plain_ms": plain_ms}
+        # the class-id launch alone: class ids mapped beforehand
+        cls = classes_for(tables.byte_class, toks, lens).to(
+            torch.int32).contiguous()
+        runs = {
+            "raw_byte": lambda seg: raw_run(toks, lens, state, match, seg),
+            "class_id": lambda seg: PAIR_SCAN(
+                cls, lens, cid.class_tiles, tables.init_mask,
+                tables.final_mask, state=state, match=match, segment=seg)}
+        for name, scanner in (("raw_byte", raw), ("class_id", cid)):
+            outs = {"plan": scanner(toks, lens, state, match),
+                    "one segment": runs[name](L)}
             torch.cuda.synchronize()
+            for how, (m, s) in outs.items():
+                if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
+                    raise SystemExit(
+                        "kernel %s (%s) disagrees with scan_pairs at B=%d "
+                        "L=%d: match diff words=%d state diff words=%d"
+                        % (name, how, B, L, int((m != m_ref).sum()),
+                           int((s != s_ref).sum())))
+            m, s = outs["plan"]
             err = max(int((m.long() - m_ref.long()).abs().max()),
                       int((s.long() - s_ref.long()).abs().max()))
-            if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
-                raise SystemExit(
-                    "kernel %s disagrees with scan_pairs at L=%d: "
-                    "match diff words=%d state diff words=%d"
-                    % (name, L, int((m != m_ref).sum()),
-                       int((s != s_ref).sum())))
-            if name == "raw_byte":
-                fn = lambda: scanner(toks, lens, state, match)
-                tok_bytes = 1
-            else:
-                # time the kernel alone: class ids mapped beforehand
-                cls = classes_for(tables.byte_class, toks, lens).to(
-                    torch.int32).contiguous()
-                fn = lambda: PAIR_SCAN(cls, lens, tables.class_table,
-                                       tables.init_mask, tables.final_mask,
-                                       state=state, match=match)
-                tok_bytes = 4
-            ms = device_ms(fn)
-            b = bound(len_np, L, W, K1, tok_bytes, carried=True)
-            row[name] = {"ms": ms, "max_abs_err": err, **b,
+            tm = timed_plan(runs[name], B, L, W)
+            b = bound(len_np, L, W, K1, 1 if name == "raw_byte" else 4,
+                      carried=True)
+            row[name] = {**tm, "max_abs_err": err, **b,
                          "parity": "bit-identical"}
-            log("kernel pair_scan[%s] B=%d L=%d W=%d K1=%d: bit-identical "
-                "match+state; %.4f ms device (plain %.3f ms, bound %.4f ms "
-                "by %s/%s, %.2fx)"
-                % (name, SCAN_B, L, W, K1, ms, plain_ms, b["bound_ms"],
-                   b["bound_by"], b["pipe"], ms / b["bound_ms"]))
+            log("kernel pair_scan[%s] B=%d L=%d W=%d K1=%d G=%d (%d "
+                "segments): bit-identical match+state; %.4f ms device "
+                "(one segment %.4f ms; plain %.3f ms, bound %.4f ms by "
+                "%s/%s, %.2fx)"
+                % (name, B, L, W, K1, tm["G"], tm["segments"], tm["ms"],
+                   tm["one_segment_ms"], plain_ms, b["bound_ms"],
+                   b["bound_by"], b["pipe"], tm["ms"] / b["bound_ms"]))
         shapes.append(row)
     return {"shapes": shapes, "edges": edge_parity(tables, rng),
             "tables": tables}
+
+
+def phase_segment_sweep(tables, dev: torch.device) -> dict:
+    """Both kernels (raw-byte pair, step) at the row-starved shapes of the
+    batch path and the stream lane, every row full, timed at each segment
+    length of SWEEP_GS below L, at one segment and at the plan's length:
+    the measurement the plan's warp target rests on."""
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
+    from ingress_plus_tpu_torch.ops.segments import plan_segments
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+
+    W = tables.n_words
+    rng = np.random.default_rng(SEED + 7)
+    runs = {"pair_scan": forced(PAIR_SCAN, ByteScanner(tables)),
+            "step_scan": forced(STEP_SCAN, StepScanner(tables))}
+    out = []
+    for B, L in SWEEP_SHAPES:
+        toks = torch.from_numpy(
+            rng.integers(32, 127, (B, L), dtype=np.uint8)).to(dev)
+        lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+        plan = plan_segments(B, L, W)
+        for name, run in runs.items():
+            ms = {G: device_ms(lambda: run(toks, lens, segment=G))
+                  for G in sorted({g for g in SWEEP_GS if g < L}
+                                  | {L, plan.G})}
+            best = min(ms, key=ms.get)
+            out.append({"kernel": name, "B": B, "L": L, "plan_G": plan.G,
+                        "ms_by_G": ms, "best_G": best})
+            log("sweep %s B=%d L=%d: %s ms by G; best G=%d, plan G=%d"
+                % (name, B, L, json.dumps({g: round(v, 5)
+                                           for g, v in ms.items()}),
+                   best, plan.G))
+    return {"shapes": out}
 
 
 def edge_parity(tables, rng: np.random.Generator) -> str:
@@ -351,6 +463,7 @@ def edge_parity(tables, rng: np.random.Generator) -> str:
     one dead column), and the largest class table (K+1 = 257: the raw
     byte table plus the dead row, fed byte values as class ids), which
     needs more than 48 KB of shared memory.  Bit-identical or fail."""
+    from ingress_plus_tpu_torch.ops.cuda_build import tile_class_table
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
     from ingress_plus_tpu_torch.ops.scan import from_numpy_u32, scan_pairs
 
@@ -369,8 +482,9 @@ def edge_parity(tables, rng: np.random.Generator) -> str:
                               lens, match=match)
     raw = torch.cat([tables.byte_table,
                      torch.zeros_like(tables.byte_table[:1])]).contiguous()
-    m2, s2 = PAIR_SCAN(toks.to(torch.int32).contiguous(), lens, raw,
-                       tables.init_mask, tables.final_mask, match=match)
+    m2, s2 = PAIR_SCAN(toks.to(torch.int32).contiguous(), lens,
+                       tile_class_table(raw), tables.init_mask,
+                       tables.final_mask, match=match)
     torch.cuda.synchronize()
     for name, (a, b) in {"odd_B_odd_L": ((m, s), (m_ref, s_ref)),
                          "k1_257": ((m2, s2), (m_ref, s_ref))}.items():
@@ -499,18 +613,21 @@ def phase_pipeline(cr, dev: torch.device):
     return res, inputs, requests, want
 
 
-def retime_launches(label: str, kernel_fn, plain_fn, tables, inputs,
-                    dev: torch.device, kernel: str, inner: int = 20,
+def retime_launches(label: str, scanner, kernel, plain_fn, tables, inputs,
+                    dev: torch.device, kind: str, inner: int = 20,
                     reps: int = 10) -> dict:
     """A kernel at each launch a path made, on that launch's own inputs
-    ``(tokens, lengths[, state, match])``: parity with the plain version
-    (match and state), device time, the plain version's time (CUDA events
-    around one host-driven call, the same call that gives the parity
-    reference) and the bound.  Totals are one pass over the path's
+    ``(tokens, lengths[, state, match])``: parity of the ``scanner``'s
+    launch with the plain version (match and state), device time at the
+    plan's segment length and, where the plan splits, at one segment,
+    the plain version's time (CUDA events around one host-driven call,
+    the same call that gives the parity reference) and the bound
+    (``kind`` "pair" or "step").  Totals are one pass over the path's
     launches."""
     from ingress_plus_tpu_torch.ops.scan import from_numpy_u32
 
     W, K1 = tables.n_words, tables.class_table.shape[0]
+    run = forced(kernel, scanner)
     by_shape: dict = {}
     for inp in inputs:
         tok_np, len_np = inp[0], np.asarray(inp[1], np.int32)
@@ -519,7 +636,7 @@ def retime_launches(label: str, kernel_fn, plain_fn, tables, inputs,
         carried = len(inp) > 2
         if carried:
             args += [from_numpy_u32(inp[2], dev), from_numpy_u32(inp[3], dev)]
-        m, s = kernel_fn(*args)
+        m, s = scanner(*args)
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -531,85 +648,104 @@ def retime_launches(label: str, kernel_fn, plain_fn, tables, inputs,
         if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
             raise SystemExit("%s: kernel disagrees with its plain version on "
                              "a launch B=%d L=%d" % (label, B, L))
-        bd = bound(len_np, L, W, K1, 1, carried, kernel)
+        bd = bound(len_np, L, W, K1, 1, carried, kind)
+        tm = timed_plan(lambda seg: run(*args, segment=seg), B, L, W,
+                        inner, reps)
         agg = by_shape.setdefault("%dx%d" % (B, L), {
-            "B": B, "L": L, "launches": 0, "ms": 0.0, "plain_ms": 0.0,
-            "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
+            "B": B, "L": L, "G": tm["G"], "segments": tm["segments"],
+            "launches": 0, "ms": 0.0, "one_segment_ms": 0.0,
+            "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
+            "bytes_ms": 0.0})
         agg["launches"] += 1
-        agg["ms"] += device_ms(lambda: kernel_fn(*args), inner=inner,
-                               reps=reps)
+        agg["ms"] += tm["ms"]
+        agg["one_segment_ms"] += tm["one_segment_ms"]
         agg["plain_ms"] += a.elapsed_time(b)
         for k in ("bound_ms", "ops_ms", "bytes_ms"):
             agg[k] += bd[k]
     total = {k: sum(a[k] for a in by_shape.values())
-             for k in ("launches", "ms", "plain_ms", "bound_ms", "ops_ms",
-                       "bytes_ms")}
+             for k in ("launches", "ms", "one_segment_ms", "plain_ms",
+                       "bound_ms", "ops_ms", "bytes_ms")}
     total["bound_by"] = ("operations" if total["ops_ms"] >= total["bytes_ms"]
                          else "bytes")
     for key, a in sorted(by_shape.items(),
                          key=lambda kv: (kv[1]["L"], kv[1]["B"])):
-        log("%s B=%d L=%d: %d launches, bit-identical; %.4f ms device "
-            "(plain %.3f ms, bound %.5f ms, %.1fx)"
-            % (label, a["B"], a["L"], a["launches"], a["ms"], a["plain_ms"],
-               a["bound_ms"], a["ms"] / a["bound_ms"]))
-    log("%s total: %d launches, %.4f ms device (plain %.1f ms, bound %.5f "
-        "ms by %s)" % (label, total["launches"], total["ms"],
-                       total["plain_ms"], total["bound_ms"],
-                       total["bound_by"]))
+        log("%s B=%d L=%d G=%d (%d segments): %d launches, bit-identical; "
+            "%.4f ms device (one segment %.4f ms; plain %.3f ms, bound "
+            "%.5f ms, %.1fx)"
+            % (label, a["B"], a["L"], a["G"], a["segments"], a["launches"],
+               a["ms"], a["one_segment_ms"], a["plain_ms"], a["bound_ms"],
+               a["ms"] / a["bound_ms"]))
+    log("%s total: %d launches, %.4f ms device (one segment %.4f ms; plain "
+        "%.1f ms, bound %.5f ms by %s)"
+        % (label, total["launches"], total["ms"], total["one_segment_ms"],
+           total["plain_ms"], total["bound_ms"], total["bound_by"]))
     return {"shapes": by_shape, "total": total}
 
 
 def phase_main_shapes(tables, inputs, dev: torch.device) -> dict:
     """The pair kernel at each launch of the main path (raw-byte
     configuration, as ``pallas3`` runs it)."""
-    from ingress_plus_tpu_torch.ops.pair_scan import ByteScanner
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
     from ingress_plus_tpu_torch.ops.scan import scan_pairs
 
     return retime_launches(
-        "main path", ByteScanner(tables),
+        "main path", ByteScanner(tables), PAIR_SCAN,
         lambda t, n: scan_pairs(tables, t, n), tables, inputs, dev, "pair")
 
 
 def phase_step_kernel(tables, dev: torch.device) -> dict:
     """The step kernel against ``scan_bytes`` at B=1024 x L in SCAN_LS
-    (ragged lengths, carried state and sticky match), then the edge
-    shapes and the chained carry."""
+    (ragged lengths, carried state and sticky match) and at the split
+    shapes (B=8, lengths on segment boundaries; checked split and
+    unsplit), then the edge shapes and the chained carry at B=1024 and at
+    B=8."""
     from ingress_plus_tpu_torch.ops.scan import from_numpy_u32, scan_bytes
-    from ingress_plus_tpu_torch.ops.step_scan import StepScanner
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
 
     scanner = StepScanner(tables)
+    run = forced(STEP_SCAN, scanner)
     W, K1 = tables.n_words, tables.class_table.shape[0]
     rng = np.random.default_rng(SEED + 4)
     shapes = []
-    for L in SCAN_LS:
-        toks_np, len_np, match_np, state_np = scan_inputs(L, W, rng)
+    for B, L in ([(SCAN_B, L) for L in SCAN_LS]
+                 + [(SPLIT_B, L) for L in SPLIT_LS]):
+        toks_np, len_np, match_np, state_np = (
+            scan_inputs if B == SCAN_B else split_inputs)(L, W, rng)
         toks = torch.from_numpy(toks_np).to(dev)
         lens = torch.from_numpy(len_np).to(dev)
         match = from_numpy_u32(match_np, dev)
         state = from_numpy_u32(state_np, dev)
         m_ref, s_ref = scan_bytes(tables, toks, lens, state, match)
-        m, s = scanner(toks, lens, state, match)
+        outs = {"plan": scanner(toks, lens, state, match),
+                "one segment": run(toks, lens, state, match, L)}
         torch.cuda.synchronize()
+        for how, (m, s) in outs.items():
+            if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
+                raise SystemExit(
+                    "kernel step_scan (%s) disagrees with scan_bytes at B=%d "
+                    "L=%d: match diff words=%d state diff words=%d"
+                    % (how, B, L, int((m != m_ref).sum()),
+                       int((s != s_ref).sum())))
+        m, s = outs["plan"]
         err = max(int((m.long() - m_ref.long()).abs().max()),
                   int((s.long() - s_ref.long()).abs().max()))
-        if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
-            raise SystemExit(
-                "kernel step_scan disagrees with scan_bytes at L=%d: match "
-                "diff words=%d state diff words=%d"
-                % (L, int((m != m_ref).sum()), int((s != s_ref).sum())))
         plain_ms = time_ms(lambda: scan_bytes(tables, toks, lens, state,
                                               match),
                            reps=2 if L >= 8192 else 5)
-        ms = device_ms(lambda: scanner(toks, lens, state, match))
+        tm = timed_plan(lambda seg: run(toks, lens, state, match, seg),
+                        B, L, W)
         b = bound(len_np, L, W, K1, 1, carried=True, kernel="step")
-        shapes.append({"B": SCAN_B, "L": L, "ms": ms, "plain_ms": plain_ms,
+        shapes.append({"B": B, "L": L, **tm, "plain_ms": plain_ms,
                        "max_abs_err": err, **b, "parity": "bit-identical"})
-        log("kernel step_scan B=%d L=%d W=%d K1=%d: bit-identical "
-            "match+state; %.4f ms device (plain %.3f ms, bound %.4f ms by "
-            "%s/%s, %.2fx)" % (SCAN_B, L, W, K1, ms, plain_ms, b["bound_ms"],
-                               b["bound_by"], b["pipe"], ms / b["bound_ms"]))
+        log("kernel step_scan B=%d L=%d W=%d K1=%d G=%d (%d segments): "
+            "bit-identical match+state; %.4f ms device (one segment %.4f "
+            "ms; plain %.3f ms, bound %.4f ms by %s/%s, %.2fx)"
+            % (B, L, W, K1, tm["G"], tm["segments"], tm["ms"],
+               tm["one_segment_ms"], plain_ms, b["bound_ms"], b["bound_by"],
+               b["pipe"], tm["ms"] / b["bound_ms"]))
     return {"shapes": shapes, "edges": step_edges(tables, rng),
-            "chain": chained_carry(tables, rng)}
+            "chain": [chained_carry(tables, rng, B) for B in (SCAN_B,
+                                                              SPLIT_B)]}
 
 
 def step_edges(tables, rng: np.random.Generator) -> str:
@@ -617,6 +753,7 @@ def step_edges(tables, rng: np.random.Generator) -> str:
     class table (K+1 = 257: the raw byte table plus the dead row, reached
     through the identity LUT, so raw bytes are the class ids), which needs
     more than 48 KB of shared memory.  Bit-identical or fail."""
+    from ingress_plus_tpu_torch.ops.cuda_build import tile_class_table
     from ingress_plus_tpu_torch.ops.scan import from_numpy_u32, scan_bytes
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
 
@@ -637,8 +774,9 @@ def step_edges(tables, rng: np.random.Generator) -> str:
     raw = torch.cat([tables.byte_table,
                      torch.zeros_like(tables.byte_table[:1])]).contiguous()
     ident = torch.arange(257, dtype=torch.int32, device=dev)
-    m2, s2 = STEP_SCAN(toks, lens, raw, tables.init_mask, tables.final_mask,
-                       byte_class=ident, state=state, match=match)
+    m2, s2 = STEP_SCAN(toks, lens, tile_class_table(raw), tables.init_mask,
+                       tables.final_mask, byte_class=ident, state=state,
+                       match=match)
     torch.cuda.synchronize()
     for name, (a, b) in {"odd_B_odd_L": ((m, s), (m_ref, s_ref)),
                          "k1_257": ((m2, s2), (m_ref, s_ref))}.items():
@@ -650,21 +788,26 @@ def step_edges(tables, rng: np.random.Generator) -> str:
     return "bit-identical: B=%d, odd L=%d, K+1=257" % (B, L)
 
 
-def chained_carry(tables, rng: np.random.Generator) -> str:
-    """Rows cut at ragged points (0, 1, odd, the whole row) and scanned in
-    two calls, the first call's (state, match) carried into the second,
+def chained_carry(tables, rng: np.random.Generator, B: int) -> str:
+    """B rows cut at ragged points (0, 1, odd, the whole row) and scanned
+    in two calls, the first call's (state, match) carried into the second,
     must end in the words of one whole-row call, which must equal
     ``scan_bytes``.  A kernel that zeroed short rows' state would pass
-    every match check and fail here."""
+    every match check and fail here; at B=8 the plan splits every call's
+    rows, so the carried state crosses segments too."""
     from ingress_plus_tpu_torch.ops.scan import from_numpy_u32, scan_bytes
     from ingress_plus_tpu_torch.ops.step_scan import StepScanner
 
     dev = tables.byte_table.device
     L, W = 2048, tables.n_words
-    toks_np, len_np, match_np, state_np = scan_inputs(L, W, rng)
+    toks_np, len_np, match_np, state_np = (
+        scan_inputs if B == SCAN_B else split_inputs)(L, W, rng)
     n = np.clip(len_np, 0, L)
     cut = (rng.random(n.shape) * (n + 1)).astype(np.int32)
-    cut[:8] = [0, 0, 1, min(1, n[3]), n[4], n[5] // 2 | 1, 0, n[7]]
+    if B == SCAN_B:
+        cut[:8] = [0, 0, 1, min(1, n[3]), n[4], n[5] // 2 | 1, 0, n[7]]
+    else:
+        cut[[0, -1]] = [0, n[-1]]
     cut = np.minimum(cut, n)
     rest = np.zeros_like(toks_np)
     for i in range(n.shape[0]):
@@ -732,7 +875,7 @@ def phase_pallas_pipeline(cr, dev: torch.device, requests, want) -> dict:
            res["engine_s"]))
     tables = gpu.engine.tables.scan
     res["retimed"] = retime_launches(
-        "pallas path", StepScanner(tables),
+        "pallas path", StepScanner(tables), STEP_SCAN,
         lambda t, n: scan_bytes(tables, t, n), tables, inputs, dev, "step")
     return res
 
@@ -787,7 +930,7 @@ def phase_stream(cr, dev: torch.device) -> dict:
     try:
         tables = gpu.engine.tables.scan
         retimed = retime_launches(
-            "stream wave", eng.scanner(),
+            "stream wave", eng.scanner(), STEP_SCAN,
             lambda t, n, s, m: scan_bytes(tables, t, n, s, m), tables,
             eng.recorded, dev, "step", inner=10, reps=5)
         out, err = child.communicate(timeout=900)
@@ -860,9 +1003,20 @@ def stream_cpu_reference() -> int:
     return 0
 
 
+def segment_rows(path: str, shapes) -> list:
+    """Each shape's segment plan and times, for the kernels line."""
+    return [{"path": path, "launches": a.get("launches", 0),
+             **{k: a[k] for k in ("B", "L", "G", "segments", "ms",
+                                  "one_segment_ms")}} for a in shapes]
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
+    kernels_only = sys.argv[1:] == ["--kernels-only"]
+    if sys.argv[1:] and not kernels_only:
+        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -884,10 +1038,26 @@ def main() -> int:
         log("built %s" % lib.name)
     log("build %.1fs" % (time.perf_counter() - t0))
     smi = nvidia_smi_line()
+    log("card: %s" % smi)
     cr = load_pack()
     log("pack: %d rules, W=%d words, %d factors" % (
         cr.n_rules, cr.tables.n_words, cr.tables.n_factors))
     kern = phase_kernel(cr, dev)
+    sweep = phase_segment_sweep(kern["tables"], dev)
+    if kernels_only:
+        step = phase_step_kernel(kern["tables"], dev)
+        sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
+                "step_scan": sass_loop_mix(libs[1], "byte", 1)}
+        log("sass loops: %s" % json.dumps(sass))
+        log("detail " + json.dumps({
+            "card": smi, "scan_shapes": kern["shapes"], "sweep": sweep,
+            "step_scan": step, "sass": sass,
+            "seconds": time.perf_counter() - t0}))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     pipe, inputs, requests, want = phase_pipeline(cr, dev)
     main_path = phase_main_shapes(kern["tables"], inputs, dev)
     step = phase_step_kernel(kern["tables"], dev)
@@ -899,15 +1069,27 @@ def main() -> int:
     detail = {
         "card": smi, "pipeline": pipe, "main_path": main_path,
         "scan_shapes": kern["shapes"], "edges": kern["edges"],
-        "step_scan": step, "pallas_pipeline": pallas, "stream": stream,
-        "sass": sass, "seconds": time.perf_counter() - t0}
+        "sweep": sweep, "step_scan": step, "pallas_pipeline": pallas,
+        "stream": stream, "sass": sass,
+        "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
     step_paths = {"stream": stream["retimed"]["total"],
                   "pallas_batch": pallas["retimed"]["total"]}
     step_tot = {k: sum(p[k] for p in step_paths.values())
-                for k in ("launches", "ms", "plain_ms", "bound_ms", "ops_ms",
-                          "bytes_ms")}
+                for k in ("launches", "ms", "one_segment_ms", "plain_ms",
+                          "bound_ms", "ops_ms", "bytes_ms")}
+    pair_segments = segment_rows("pallas3 batch path",
+                                 main_path["shapes"].values())
+    for c in ("raw_byte", "class_id"):
+        pair_segments += segment_rows(
+            "phase 2 %s" % c, [{"B": r["B"], "L": r["L"], **r[c]}
+                               for r in kern["shapes"]])
+    step_segments = (
+        segment_rows("stream lane", stream["retimed"]["shapes"].values())
+        + segment_rows("pallas batch path",
+                       pallas["retimed"]["shapes"].values())
+        + segment_rows("phase 4", step["shapes"]))
     print(json.dumps({"kernels": [{
         "name": "pair_scan",
         "route": "cuda",
@@ -915,26 +1097,32 @@ def main() -> int:
         "replaces": "ingress_plus_tpu/ops/pallas_scan.py:270",
         "configurations": ["raw_byte (pallas3)", "class_id (pallas2)"],
         "parity": "bit-identical match and state, both configurations, "
-                  "L in %s, every main-path bucket; edges %s"
-                  % (list(SCAN_LS), kern["edges"]),
+                  "B=%d x L in %s, B=%d x L in %s split and unsplit, every "
+                  "main-path bucket; edges %s"
+                  % (SCAN_B, list(SCAN_LS), SPLIT_B, list(SPLIT_LS),
+                     kern["edges"]),
         "launches": pipe["launches"],
         "max_abs_err": max(s[c]["max_abs_err"] for s in kern["shapes"]
                            for c in ("raw_byte", "class_id")),
         "shape": "the main path's %d launches, raw_byte, summed"
                  % tot["launches"],
         "ms": tot["ms"],
+        "one_segment_ms": tot["one_segment_ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": tot["bound_by"],
         "library_ms": None,
+        "segments": pair_segments,
     }, {
         "name": "step_scan",
         "route": "cuda",
         "source": "ingress_plus_tpu_torch/csrc/step_scan.cu",
         "replaces": "ingress_plus_tpu/ops/pallas_scan.py:49",
-        "parity": "bit-identical match and state: B=%d, L in %s; edges %s; "
-                  "chained carry %s; every stream wave and pallas bucket"
-                  % (SCAN_B, list(SCAN_LS), step["edges"], step["chain"]),
+        "parity": "bit-identical match and state: B=%d x L in %s, B=%d x L "
+                  "in %s split and unsplit; edges %s; chained carry %s; "
+                  "every stream wave and pallas bucket"
+                  % (SCAN_B, list(SCAN_LS), SPLIT_B, list(SPLIT_LS),
+                     step["edges"], step["chain"]),
         "launches": stream["launches"] + pallas["launches"],
         "launches_by_path": {"stream": stream["launches"],
                              "pallas_batch": pallas["launches"]},
@@ -943,11 +1131,13 @@ def main() -> int:
                  "launches, summed" % (stream["launches"],
                                        pallas["launches"]),
         "ms": step_tot["ms"],
+        "one_segment_ms": step_tot["one_segment_ms"],
         "plain_ms": step_tot["plain_ms"],
         "bound_ms": step_tot["bound_ms"],
         "bound_by": ("operations" if step_tot["ops_ms"] >= step_tot["bytes_ms"]
                      else "bytes"),
         "library_ms": None,
+        "segments": step_segments,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

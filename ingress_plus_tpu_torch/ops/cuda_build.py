@@ -4,8 +4,9 @@ Each kernel source under ``csrc/`` has a plain C interface.  At first use
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` compiles it into a shared library under
 ``ingress_plus_tpu_torch/build/``, named after the source and keyed by
-the hash of the source and the flags, and ``ctypes`` loads it.  Nothing
-is built when a module is imported.
+the hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, and ``ctypes`` loads it.  Nothing is built when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from ingress_plus_tpu_torch.ops.segments import WORD_TILE, plan_segments
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -47,7 +50,8 @@ def build_library(source: Path, verbose: bool = False) -> Path:
     """Compile ``source`` (once per source hash and flags); returns the
     shared library's path.  ``verbose`` rebuilds with ``-Xptxas -v`` and
     prints the compiler's register and shared-memory report."""
-    src = source.read_bytes()
+    src = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / ("lib%s_%s.so" % (source.stem, tag[:16]))
     if out.exists() and not verbose:
@@ -135,6 +139,17 @@ def check_tensors(dev: torch.device, want: dict) -> None:
             raise ValueError("%s must be contiguous" % name)
 
 
+def tile_class_table(class_table: torch.Tensor) -> torch.Tensor:
+    """(K+1, W) class table -> the kernels' word-tile-major copy,
+    (ceil(W/32), K+1, 32) int32 with zero reach past W: one block's
+    32-word slice is then one contiguous span."""
+    K1, W = class_table.shape
+    tiles = -(-W // WORD_TILE)
+    padded = torch.nn.functional.pad(class_table.to(torch.int32),
+                                     (0, tiles * WORD_TILE - W))
+    return padded.view(K1, tiles, WORD_TILE).permute(1, 0, 2).contiguous()
+
+
 def device_words(x: Optional[torch.Tensor],
                  dev: torch.device) -> Optional[torch.Tensor]:
     """Optional (B, W) words as a contiguous int32 tensor on ``dev``."""
@@ -145,12 +160,13 @@ class ScanKernel:
     """ctypes binding of one scan kernel, plus its launch count.
 
     The scan kernels share one C interface, from ``csrc/<name>.cu``:
-    ``<name>_launch(tokens, lengths, byte_class, class_table, k1,
+    ``<name>_launch(tokens, lengths, byte_class, class_tiles, k1,
     init_mask, final_mask, state_in, match_in, match_out, state_out, B,
-    L, W, stream)`` returning ``cudaGetLastError()``, ``<name>_max_k1()``
-    and the per-device setup ``<name>_init()``.  ``class_ids`` says
-    whether the kernel also takes int32 class ids in place of uint8
-    bytes and a ``byte_class`` LUT."""
+    L, W, G, stream)`` returning ``cudaGetLastError()``,
+    ``<name>_max_k1()`` and the per-device setup ``<name>_init()``.  ``G``
+    is the segment length of :func:`ops.segments.plan_segments`.
+    ``class_ids`` says whether the kernel also takes int32 class ids in
+    place of uint8 bytes and a ``byte_class`` LUT."""
 
     def __init__(self, name: str, class_ids: bool):
         self.name = name
@@ -159,7 +175,7 @@ class ScanKernel:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         self.lib = KernelLibrary(CSRC / (name + ".cu"), {
             name + "_launch": ([vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
-                                ci, ci, ci, vp], ci),
+                                ci, ci, ci, ci, vp], ci),
             name + "_max_k1": ([], ci),
         }, init=name + "_init")
 
@@ -169,17 +185,21 @@ class ScanKernel:
         return self.lib.load(dev)
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                 class_table: torch.Tensor, init_mask: torch.Tensor,
+                 class_tiles: torch.Tensor, init_mask: torch.Tensor,
                  final_mask: torch.Tensor,
                  byte_class: Optional[torch.Tensor] = None,
                  state: Optional[torch.Tensor] = None,
-                 match: Optional[torch.Tensor] = None
+                 match: Optional[torch.Tensor] = None,
+                 segment: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Launch on ``torch.cuda.current_stream()``; returns (match,
         state) (B, W) int32.  ``byte_class`` (257,) int32 maps uint8
-        ``tokens`` to rows of ``class_table`` (K+1, W); without it (class
-        id kernels only) ``tokens`` are int32 class ids.  Ids outside
-        [0, K+1) read as the last (dead) row."""
+        ``tokens`` to class rows of ``class_tiles`` (the
+        :func:`tile_class_table` copy of the (K+1, W) class table);
+        without it (class id kernels only) ``tokens`` are int32 class
+        ids.  Ids outside [0, K+1) read as the last (dead) row.  The
+        launch splits rows by :func:`plan_segments`; ``segment`` forces
+        its segment length (``L`` or more: one segment)."""
         label = self.name.replace("_", "-")
         dev = tokens.device
         if dev.type != "cuda":
@@ -188,12 +208,14 @@ class ScanKernel:
         if byte_class is None and not self.class_ids:
             raise ValueError("%s kernel needs a byte_class LUT" % label)
         B, L = tokens.shape
-        K1, W = class_table.shape
+        W = init_mask.shape[0]
+        K1 = class_tiles.shape[1] if class_tiles.dim() == 3 else 0
         want = {
             "tokens": (tokens, torch.uint8 if byte_class is not None
                        else torch.int32, (B, L)),
             "lengths": (lengths, torch.int32, (B,)),
-            "class_table": (class_table, torch.int32, (K1, W)),
+            "class_tiles": (class_tiles, torch.int32,
+                            (-(-W // WORD_TILE), K1, WORD_TILE)),
             "init_mask": (init_mask, torch.int32, (W,)),
             "final_mask": (final_mask, torch.int32, (W,)),
         }
@@ -204,13 +226,16 @@ class ScanKernel:
         if match is not None:
             want["match"] = (match, torch.int32, (B, W))
         check_tensors(dev, want)
+        for name in ("class_tiles", "byte_class"):   # bulk-copied whole
+            t = want.get(name, (None,))[0]
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError("%s must be 16-byte aligned" % name)
         lib = self.library(dev)
         max_k1 = getattr(lib, self.name + "_max_k1")()
         if not 1 <= K1 <= max_k1:
             raise ValueError("class table has %d rows; the kernel takes "
                              "1..%d" % (K1, max_k1))
-        if B > 8 * 65535:
-            raise ValueError("batch of %d rows exceeds the grid" % B)
+        plan = plan_segments(B, L, W, segment)
         match_out = torch.empty((B, W), dtype=torch.int32, device=dev)
         state_out = torch.empty((B, W), dtype=torch.int32, device=dev)
 
@@ -220,9 +245,9 @@ class ScanKernel:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, self.name + "_launch")(
-                ptr(tokens), ptr(lengths), ptr(byte_class), ptr(class_table),
+                ptr(tokens), ptr(lengths), ptr(byte_class), ptr(class_tiles),
                 K1, ptr(init_mask), ptr(final_mask), ptr(state), ptr(match),
-                ptr(match_out), ptr(state_out), B, L, W, stream)
+                ptr(match_out), ptr(state_out), B, L, W, plan.G, stream)
         if err != 0:
             raise RuntimeError("%s kernel launch failed: CUDA error %d"
                                % (label, err))

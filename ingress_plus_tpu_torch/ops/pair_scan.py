@@ -11,6 +11,10 @@ Build: ``ops/cuda_build.py`` compiles ``csrc/pair_scan.cu`` with nvcc
 for sm_90a at first use and loads it with ``ctypes``.  Nothing is built
 when this module is imported.
 
+Each launch splits its rows' pair chains across warps by the segment
+plan of ``ops/segments.py`` (the 8-row buckets of long bodies would
+otherwise leave most of the card idle).
+
 Dispatch: a scanner given CUDA tensors launches the kernel or raises; it
 never falls back.  Given CPU tensors it runs the plain version,
 ``ops/scan.py::scan_pairs``, which is the kernel's reference.  The
@@ -24,7 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ingress_plus_tpu_torch.ops.cuda_build import ScanKernel, device_words
+from ingress_plus_tpu_torch.ops.cuda_build import (
+    ScanKernel,
+    device_words,
+    tile_class_table,
+)
 from ingress_plus_tpu_torch.ops.scan import ScanTables, classes_for, scan_pairs
 
 #: the process's one binding of the pair-scan kernel
@@ -43,6 +51,7 @@ class ByteScanner:
     def __init__(self, tables: ScanTables):
         self.tables = tables
         self.byte_class = tables.byte_class.to(torch.int32).contiguous()
+        self.class_tiles = tile_class_table(tables.class_table)
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor,
                  state: Optional[torch.Tensor] = None,
@@ -55,7 +64,7 @@ class ByteScanner:
         return PAIR_SCAN(
             tokens.to(torch.uint8).contiguous(),
             lengths.to(dev, torch.int32).contiguous(),
-            t.class_table, t.init_mask, t.final_mask,
+            self.class_tiles, t.init_mask, t.final_mask,
             byte_class=self.byte_class, state=device_words(state, dev),
             match=device_words(match, dev))
 
@@ -69,6 +78,7 @@ class PairScanner:
 
     def __init__(self, tables: ScanTables):
         self.tables = tables
+        self.class_tiles = tile_class_table(tables.class_table)
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor,
                  state: Optional[torch.Tensor] = None,
@@ -82,7 +92,7 @@ class PairScanner:
         return PAIR_SCAN(
             cls.to(torch.int32).contiguous(),
             lengths.to(dev, torch.int32).contiguous(),
-            t.class_table, t.init_mask, t.final_mask,
+            self.class_tiles, t.init_mask, t.final_mask,
             state=device_words(state, dev), match=device_words(match, dev))
 
 

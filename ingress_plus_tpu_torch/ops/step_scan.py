@@ -11,6 +11,10 @@ Build: ``ops/cuda_build.py`` compiles ``csrc/step_scan.cu`` with nvcc for
 sm_90a at first use and loads it with ``ctypes``.  Nothing is built when
 this module is imported.
 
+Each launch splits its rows' byte chains across warps by the segment
+plan of ``ops/segments.py`` (a stream wave of 8-32 rows would otherwise
+leave most of the card idle).
+
 Dispatch: the scanner given CUDA tensors launches the kernel or raises;
 it never falls back.  Given CPU tensors it runs the plain version,
 ``ops/scan.py::scan_bytes``, which is the kernel's reference.  The
@@ -24,7 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ingress_plus_tpu_torch.ops.cuda_build import ScanKernel, device_words
+from ingress_plus_tpu_torch.ops.cuda_build import (
+    ScanKernel,
+    device_words,
+    tile_class_table,
+)
 from ingress_plus_tpu_torch.ops.scan import ScanTables, scan_bytes
 
 #: the process's one binding of the step-scan kernel
@@ -42,6 +50,7 @@ class StepScanner:
     def __init__(self, tables: ScanTables):
         self.tables = tables
         self.byte_class = tables.byte_class.to(torch.int32).contiguous()
+        self.class_tiles = tile_class_table(tables.class_table)
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor,
                  state: Optional[torch.Tensor] = None,
@@ -54,6 +63,6 @@ class StepScanner:
         return STEP_SCAN(
             tokens.to(torch.uint8).contiguous(),
             lengths.to(dev, torch.int32).contiguous(),
-            t.class_table, t.init_mask, t.final_mask,
+            self.class_tiles, t.init_mask, t.final_mask,
             byte_class=self.byte_class, state=device_words(state, dev),
             match=device_words(match, dev))

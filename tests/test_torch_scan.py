@@ -315,3 +315,212 @@ def test_step_kernel_wrapper_refuses_cpu_tensors(packs):
                         tt.init_mask, tt.final_mask,
                         byte_class=tt.byte_class.to(torch.int32))
     assert tstep.STEP_SCAN.launches == before == 0
+
+
+# --- the kernels' split of a row's chain into segments (ops/segments.py) ---
+
+#: a 32-byte literal: with the reduction off it compiles to one factor
+#: that fills a whole word (init bit 0, final bit 31), the longest chain
+#: a halo must cover
+LONG = b"abcdefghijklmnopqrstuvwxyz012345"
+HALO_RULES = RULES + (
+    'SecRule ARGS "@rx %s" "id:6,phase:2,block,severity:CRITICAL"\n'
+    % LONG.decode())
+SPLIT_L = 320
+
+
+@pytest.fixture(scope="module")
+def halo_packs():
+    """(JAX ScanTables, port ScanTables) of a pack holding a 32-byte
+    factor next to the short ones."""
+    from ingress_plus_tpu.compiler.reduce import ReductionConfig
+
+    cr = compile_ruleset(parse_seclang(HALO_RULES),
+                         reduction=ReductionConfig.off())
+    assert int(cr.tables.factor_len.max()) == 32
+    return (jscan.ScanTables.from_bitap(cr.tables),
+            tscan.ScanTables.from_bitap(cr.tables, CPU))
+
+
+def _boundary_rows(G, seed, W):
+    """Rows of SPLIT_L bytes with lengths at every segment boundary
+    (odd and even), the 32-byte literal planted to end on segment starts
+    and on the bytes around them, short attacks across boundaries, a
+    carried state and a sparse sticky match."""
+    L = SPLIT_L
+    rng = np.random.default_rng(seed)
+    lengths = [0, 1, 31, 32, 33, G - 1, G, G + 1, G + 31, G + 32, G + 33,
+               L - 1, L, 2 * G + 1, L, L]
+    B = len(lengths)
+    tokens = rng.integers(32, 127, (B, L)).astype(np.uint8)
+    lit = np.frombuffer(LONG, np.uint8)
+    atk = np.frombuffer(b"1 union select /etc/passwd", np.uint8)
+    for i in range(B):
+        # the literal's last byte on a segment start, one before or after
+        end = (i % 3 - 1) + G * (1 + i % 2)
+        if 32 <= end + 1 <= L:
+            tokens[i, end + 1 - 32:end + 1] = lit
+        at = 2 * G - 7 + i % 5    # across the second segment start
+        if i % 2 == 0 and at + len(atk) <= L:
+            tokens[i, at:at + len(atk)] = atk
+    state, match = _carry(B, W, seed)
+    return tokens, np.asarray(lengths, np.int32), state, match
+
+
+def _split_twin(tt, tokens, lengths, state, match, G, halo, pairs=False):
+    """Plain twin of the kernels' split: per row, segment 0 from the
+    carried state, every later segment warmed up from the zero state over
+    the ``halo`` bytes before it (no match recorded there), the segments'
+    matches OR-ed into the sticky match, the state from the segment that
+    holds the row's end (0 for a row shorter than L on the pair path)."""
+    scan = tscan.scan_pairs if pairs else tscan.scan_bytes
+    tok = _t(tokens)
+    B, L = tok.shape
+    n = _t(np.clip(lengths, 0, L).astype(np.int32))
+    zero = torch.zeros((B, tt.n_words), dtype=torch.int32)
+    S = zero if state is None else tscan.from_numpy_u32(state, CPU)
+    M = zero if match is None else tscan.from_numpy_u32(match, CPU)
+    start0 = S
+    for a in range(0, L, G):
+        live = (n > a) | (a == 0)
+        seg = torch.where(live, torch.clamp(n, max=a + G) - a, 0)
+        start = start0
+        if a:
+            h = min(halo, a)
+            _, start = scan(tt, tok[:, a - h:a],
+                            torch.full((B,), h, dtype=torch.int32))
+        m, s = scan(tt, tok[:, a:a + G], seg.to(torch.int32), start)
+        M = M | torch.where(live[:, None], m, zero)
+        S = torch.where((live & (n <= a + G))[:, None], s, S)
+    if pairs:
+        S = torch.where((n < L)[:, None], zero, S)
+    return M, S
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("G", [32, 96, 128])
+def test_torch_split_step_scan_is_exact(halo_packs, G, carry):
+    """The step kernel's split (32-byte halo) against the whole-row
+    ``scan_bytes_jit`` and the JAX ``_scan_kernel`` in interpret mode:
+    match AND state bit-identical at every boundary length."""
+    jt, tt = halo_packs
+    tokens, lengths, state, match = _boundary_rows(G, G, tt.n_words)
+    if not carry:
+        state = match = None
+    m, s = _split_twin(tt, tokens, lengths, state, match, G, halo=32)
+    bm, bs = jscan.scan_bytes_jit(jt, tokens, lengths, state, match)
+    km, ks = PallasScanner(jt, TB=8, CL=16, MR=8)(
+        tokens, lengths, state, match, interpret=True)
+    for got, want in ((m, bm), (s, bs), (m, km), (s, ks)):
+        np.testing.assert_array_equal(_u32(got), np.asarray(want))
+    assert (_u32(m)[:, 0] >> 31).any()   # the 32-byte factor matched
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("G", [32, 96, 128])
+def test_torch_split_pair_scan_is_exact(halo_packs, G, carry):
+    """The pair kernel's split (16-pair halo) against the whole-row
+    ``scan_pairs`` of the port and of JAX and the Pallas pair scanner's
+    reference lowering (match and state); the Pallas kernel in interpret
+    mode agrees on the match words."""
+    jt, tt = halo_packs
+    tokens, lengths, state, match = _boundary_rows(G, G + 1, tt.n_words)
+    if not carry:
+        state = match = None
+    m, s = _split_twin(tt, tokens, lengths, state, match, G, halo=32,
+                       pairs=True)
+    wm, ws = tscan.scan_pairs(
+        tt, _t(tokens), _t(lengths),
+        None if state is None else tscan.from_numpy_u32(state, CPU),
+        None if match is None else tscan.from_numpy_u32(match, CPU))
+    assert torch.equal(m, wm) and torch.equal(s, ws)
+    jm, js = jscan.scan_pairs_jit(jt, tokens, lengths, state, match)
+    sc = PallasByteScanner(jt, TB=8, CL=16, MR=8)
+    rm, rs = sc(tokens, lengths, state, match, mode="reference")
+    km, _ = sc(tokens, lengths, state, match, interpret=True)
+    for got, want in ((m, jm), (s, js), (m, rm), (s, rs), (m, km)):
+        np.testing.assert_array_equal(_u32(got), np.asarray(want))
+    assert (_u32(m)[:, 0] >> 31).any()
+
+
+@pytest.mark.parametrize("G", [32, 96, 128])
+def test_torch_split_short_halo_loses_a_match(halo_packs, G):
+    """A halo one pair short (15 pairs) misses the 32-byte factor that
+    ends on a segment's first byte, so the exactness tests above would
+    catch a short halo.  The per-byte step needs 31 bytes, not 32: its
+    first recorded state already includes the segment's first byte, so
+    31 bytes stay exact and 30 lose the same match."""
+    jt, tt = halo_packs
+    tokens, lengths, state, match = _boundary_rows(G, G, tt.n_words)
+    whole_m, _ = jscan.scan_bytes_jit(jt, tokens, lengths, state, match)
+    whole_m = np.asarray(whole_m)
+
+    def split(halo, pairs):
+        m, _ = _split_twin(tt, tokens, lengths, state, match, G, halo,
+                           pairs)
+        return _u32(m)
+
+    assert not np.array_equal(split(30, True), whole_m)
+    assert not np.array_equal(split(30, False), whole_m)
+    np.testing.assert_array_equal(split(31, False), whole_m)
+    np.testing.assert_array_equal(split(32, True), whole_m)
+
+
+PLAN_SHAPES = [(1024, 64), (16, 64), (512, 128), (32, 128), (256, 256),
+               (128, 256), (8, 512), (8, 2048), (16, 2048), (32, 2048),
+               (8, 16384), (1024, 2048), (1024, 16384), (1001, 333),
+               (1, 1 << 20), (4096, 4096), (3, 0)]
+
+
+@pytest.mark.parametrize("B,L", PLAN_SHAPES)
+def test_torch_segment_plan_properties(B, L):
+    """G is a multiple of 32; a split has segments of at least
+    MIN_SEGMENT and at least MIN_SPLIT of them; the segments cover the
+    row; the grid holds every unit."""
+    from ingress_plus_tpu_torch.ops import segments as seg
+
+    plan = seg.plan_segments(B, L, 225)
+    assert plan.G % 32 == 0
+    assert plan.segments == max(1, -(-L // plan.G))
+    if plan.segments > 1:
+        assert plan.G >= seg.MIN_SEGMENT
+        assert plan.segments >= seg.MIN_SPLIT
+    else:
+        assert plan.G >= L
+    assert plan.grid == (8, -(-B * plan.segments // 8))
+    assert plan.grid[1] <= seg.MAX_GRID_Y
+    if (B, L) in ((1024, 2048), (1024, 16384)):   # the card is full
+        assert plan.segments == 1
+    if (B, L) in ((8, 2048), (8, 16384)):         # row-starved
+        assert plan.segments > 1
+
+
+def test_torch_segment_plan_forced_and_refused():
+    """A forced length splits exactly as asked; L or more is one
+    segment; a split length off the 32-byte grid and a grid overflow are
+    refused."""
+    from ingress_plus_tpu_torch.ops import segments as seg
+
+    assert seg.plan_segments(8, 2048, 225, segment=256)[:2] == (256, 8)
+    assert seg.plan_segments(8, 2048, 225, segment=2048)[:2] == (2048, 1)
+    assert seg.plan_segments(8, 333, 225, segment=333)[:2] == (352, 1)
+    for bad in (48, 16):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            seg.plan_segments(8, 2048, 225, segment=bad)
+    with pytest.raises(ValueError, match="grid"):
+        seg.plan_segments(8 * 65535 + 1, 64, 225)
+
+
+def test_torch_tile_class_table(packs):
+    """The kernels' word-tile-major class table: tile t, class c, lane l
+    holds class c's word 32*t + l, zero past W."""
+    from ingress_plus_tpu_torch.ops.cuda_build import tile_class_table
+
+    _, tt = packs
+    ct = tt.class_table
+    tiles = tile_class_table(ct)
+    K1, W = ct.shape
+    assert tiles.shape == (-(-W // 32), K1, 32) and tiles.is_contiguous()
+    flat = tiles.permute(1, 0, 2).reshape(K1, -1)
+    assert torch.equal(flat[:, :W], ct)
+    assert not flat[:, W:].any()
