@@ -53,6 +53,33 @@ Phases (any failure ends the run with a non-zero exit code):
    verdicts identical, planted attacks found, none failed open, one
    kernel launch per wave.  While the child runs, every wave again on its
    own inputs: bit-identical to ``scan_bytes``, timed.
+8. The serve plane: ``python -m ingress_plus_tpu_torch.serve`` with its
+   defaults as a child process (platform cuda, scan impl auto =
+   ``pallas3``, one inline confirm worker, warmup on); once ``/readyz``
+   answers, phase 3's requests over the UDS wire protocol on several
+   pipelined connections (``serve/client.py``), twice (two waves), then
+   the response-leak body as a response-scan frame and the other six
+   phase 6 bodies as chunked streams.  Every response must equal phase
+   3's CPU pipeline verdict (for the bodies the Batcher reroutes to the
+   stream lane: the CPU stream engine's on the whole body) and phase 6's
+   CPU stream verdicts; ``/healthz`` must report the ``cuda`` backend and
+   ``pallas3``; on ``/metrics`` breaker trips, CPU-fallback and
+   breaker-open batches, sheds, degraded and fail-open verdicts,
+   watchdog hangs and serve-time recompiles must all read 0 and
+   ``engine_us`` above 0.  The server's launches by kernel and shape
+   (``/debug/kernels``: (B, L, carried), launches, the work their
+   lengths asked for, the latest launch's lengths) are read just before
+   and just after the drive; their difference is this path's launches.
+   Then the same two waves to a second server with ``--confirm-workers
+   auto`` (the pooled confirm against the inline walk, one interpreter
+   lock either way).  Prints wire req/s, client-side p50/p99, the
+   server's stage breakdown, the confirm workers and the streamed MB/s.
+   Then each kernel at every (B, L, carried) shape the serve path
+   launched: rows of the wire traffic's own bytes cut to that shape's
+   latest lengths, through the wrapper the server uses (``ByteScanner``,
+   ``StepScanner``), bit-identical to the plain version, timed; the
+   shape's time, the plain version's and the bound (from the work the
+   server counted) over all its launches.
 7. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
@@ -68,14 +95,20 @@ instructions each compiled loop actually spends per step.
 from __future__ import annotations
 
 import json
+import os
 import random
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -111,6 +144,19 @@ HALF_PAIR = (2, 1, 1)
 ONE_BYTE = (2, 1, 1)
 STREAM_BODY = 1 << 20       # BASELINE config #5: 1 MB POST bodies
 STREAM_CHUNK = 64 << 10     # the chunk an oversized body is fed in
+#: phase 8: pipelined client connections, units in flight on each (kept
+#: small enough that no request queues past a fraction of the server's
+#: default 250 ms deadline), and the limit on the server's startup
+#: (kernel load, warmup)
+SERVE_CONNECTIONS = 4
+SERVE_WINDOW = 8
+SERVE_START_S = 420
+#: every series of these must read 0 after phase 8
+SERVE_ZERO = ("ipt_breaker_trips_total", "ipt_cpu_fallback_batches_total",
+              "ipt_breaker_fail_open_batches_total",
+              "ipt_shed_total", "ipt_degraded_verdicts_total",
+              "ipt_watchdog_hangs_total", "ipt_fail_open_total",
+              "ipt_engine_recompiles_total")
 ATTACKS = (b"1' UNION SELECT password FROM users--", b"<script>alert(1)</script>",
            b";cat /etc/passwd", b"../../etc/shadow", b"${jndi:ldap://x/a}")
 
@@ -249,26 +295,35 @@ def timed_plan(fn, B: int, L: int, W: int, inner: int = 20,
 
 def bound(lengths: np.ndarray, L: int, W: int, K1: int,
           token_bytes: int, carried: bool, kernel: str = "pair") -> dict:
-    """Least time for one call, with the work this call's lengths need:
-    the larger of bytes / HBM rate (each input read once, each output
-    written once; state and match in only when ``carried``) and the
-    recurrence's instructions over the SM pipe that runs them slowest:
-    LOP3 on the ALU pipe, every instruction through issue, class-table
-    reads through shared memory.  ``kernel`` "pair" counts full and half
-    pairs, "step" one step per byte."""
+    """Least time for one call, with the work this call's lengths need
+    (see ``bound_counts``)."""
     n = np.clip(lengths.astype(np.int64), 0, L)
+    return bound_counts(lengths.shape[0], L, W, K1, token_bytes, carried,
+                        kernel, int(n.sum()), int((n % 2).sum()))
+
+
+def bound_counts(B: int, L: int, W: int, K1: int, token_bytes: int,
+                 carried: bool, kernel: str, steps: int, odd: int,
+                 launches: int = 1) -> dict:
+    """Least time for ``launches`` calls of one (B, L) shape whose rows'
+    lengths, clamped to [0, L], sum to ``steps`` with ``odd`` of them
+    odd: the larger of bytes / HBM rate (each input read once, each
+    output written once; state and match in only when ``carried``) and
+    the recurrence's instructions over the SM pipe that runs them
+    slowest: LOP3 on the ALU pipe, every instruction through issue,
+    class-table reads through shared memory.  ``kernel`` "pair" counts
+    full and half pairs, "step" one step per byte."""
     if kernel == "pair":
-        full, half = W * int((n // 2).sum()), W * int((n % 2).sum())
+        full, half = W * ((steps - odd) // 2), W * odd
         lop3, shifts, lds = (f * full + h * half
                              for f, h in zip(FULL_PAIR, HALF_PAIR))
     else:
-        steps = W * int(n.sum())
-        lop3, shifts, lds = (c * steps for c in ONE_BYTE)
-    B = lengths.shape[0]
-    nbytes = (B * L * token_bytes + B * 4          # tokens, lengths
-              + (2 * B * W * 4 if carried else 0)  # match + state in
-              + 2 * B * W * 4                      # match + state out
-              + K1 * W * 4 + 257 * 4 + 2 * W * 4)  # tables
+        lop3, shifts, lds = (c * W * steps for c in ONE_BYTE)
+    nbytes = launches * (
+        B * L * token_bytes + B * 4                # tokens, lengths
+        + (2 * B * W * 4 if carried else 0)        # match + state in
+        + 2 * B * W * 4                            # match + state out
+        + K1 * W * 4 + 257 * 4 + 2 * W * 4)        # tables
     pipes = {"alu": lop3 / ALU_LANES,
              "issue": (lop3 + shifts + lds) / ISSUE_LANES,
              "lds": lds / LDS_LANES}
@@ -967,7 +1022,7 @@ def phase_stream(cr, dev: torch.device) -> dict:
             "of_which_kernel_device": kernel_s,
             "finish_confirm": st.finish_us / 1e6},
         "cpu_wall_s": cpu_wall, "cpu_mb_per_s": wire / cpu_wall / 1e6,
-        "retimed": retimed,
+        "retimed": retimed, "cpu_keys": ref["keys"],
     }
     log("stream lane: %d streams x %d B in %d B chunks, identical verdicts "
         "cuda vs cpu, planted attacks found, none failed open; %d waves "
@@ -1001,6 +1056,454 @@ def stream_cpu_reference() -> int:
                       "waves": eng.stats.waves,
                       "wall_s": time.perf_counter() - t0}), flush=True)
     return 0
+
+
+def metric_values(text: str, name: str) -> list:
+    """Every sample of one Prometheus metric: [(labels, value)]."""
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"^%s(\{[^}]*\})? (\S+)$" % re.escape(name), line)
+        if m:
+            out.append((m.group(1) or "", float(m.group(2))))
+    return out
+
+
+def kernel_launches(text: str) -> dict:
+    return {re.search(r'kernel="(\w+)"', lab).group(1): int(v)
+            for lab, v in metric_values(text, "ipt_kernel_launches_total")}
+
+
+def http_get(port: int, path: str, timeout: float = 30.0):
+    try:
+        with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                    timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def oversized_reference(cpu, request, plan):
+    """The verdict the Batcher's oversized reroute gives ``request``,
+    on the CPU: the whole body (inflated first for an "unpack" plan)
+    through a ``StreamEngine`` of the CPU pipeline in 64 KiB chunks."""
+    from dataclasses import replace
+
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+    from ingress_plus_tpu_torch.serve.stream import StreamEngine
+    from ingress_plus_tpu_torch.serve.unpack import unpack_body
+
+    kind, body, headers = plan
+    if kind == "unpack":
+        body = unpack_body(body, headers, request.parsers_off)
+        headers = {k: v for k, v in headers.items()
+                   if k.lower() != "content-encoding"}
+    meta = replace(request, body=b"", headers=headers)
+    eng = StreamEngine(cpu)
+    st = eng.begin(meta, body_cap=len(body))
+    st.base_hits = cpu.prefilter([meta])[0]
+    for i in range(0, len(body), Batcher.OVERSIZE_CHUNK):
+        eng.scan(st.feed(body[i:i + Batcher.OVERSIZE_CHUNK]))
+    eng.scan(st.flush())
+    return eng.finish(st)
+
+
+def wire_key(request_id: str, resp: dict) -> str:
+    """A decoded response frame as a ``verdict_key``."""
+    return json.dumps([request_id, resp["attack"], resp["blocked"],
+                       sorted(resp["rule_ids"]), resp["score"],
+                       resp["classes"]])
+
+
+class ServeChild:
+    """``python -m ingress_plus_tpu_torch.serve`` with ``args`` as a child
+    process on a temporary socket and a free HTTP port, ready once
+    ``/readyz`` answers 200; stopped (terminate, then kill) on exit."""
+
+    def __init__(self, *args: str):
+        self.args = args
+
+    def __enter__(self):
+        self.tmp = tempfile.mkdtemp(prefix="ipt")
+        self.sock = os.path.join(self.tmp, "serve.sock")
+        if len(self.sock) > 100:
+            raise SystemExit("serve: socket path too long for AF_UNIX: %s"
+                             % self.sock)
+        self.port = free_port()
+        self.log_path = os.path.join(self.tmp, "serve.log")
+        with open(self.log_path, "w") as logf:
+            self.child = subprocess.Popen(
+                [sys.executable, "-m", "ingress_plus_tpu_torch.serve",
+                 "--socket", self.sock, "--http-port", str(self.port),
+                 *self.args],
+                stdout=logf, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            t0 = time.perf_counter()
+            while True:
+                if self.child.poll() is not None:
+                    raise SystemExit("serve: the server exited with %d:\n%s"
+                                     % (self.child.returncode,
+                                        self.log()[-4000:]))
+                if time.perf_counter() - t0 > SERVE_START_S:
+                    raise SystemExit("serve: not ready after %ds:\n%s"
+                                     % (SERVE_START_S, self.log()[-4000:]))
+                try:
+                    if self.get("/readyz", 5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.25)
+            self.startup_s = time.perf_counter() - t0
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        log("serve %s: ready in %.1fs (%s)" % (" ".join(self.args),
+                                              self.startup_s, "; ".join(
+            ln for ln in self.log().splitlines() if ln)))
+        return self
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def get(self, path: str, timeout: float = 30.0):
+        return http_get(self.port, path, timeout)
+
+    def metrics(self) -> str:
+        return self.get("/metrics")[1].decode()
+
+    def __exit__(self, *exc):
+        if self.child.poll() is None:
+            self.child.terminate()
+            try:
+                self.child.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.child.kill()
+                self.child.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def request_wave(sock: str, requests, want) -> dict:
+    """``requests`` over the wire (SERVE_CONNECTIONS pipelined
+    connections, SERVE_WINDOW in flight on each); every response must
+    equal its ``want`` key and none may fail open."""
+    from ingress_plus_tpu_torch.serve.client import drive
+    from ingress_plus_tpu_torch.serve.protocol import encode_request
+
+    # the large bodies go out spread over the first 80% of the wave, not
+    # last: the server's admission queue math divides by an EWMA of its
+    # cycle time that only running cycles update, so a wave ending on
+    # slow cycles would leave the next wave shed on arrival
+    small = [i for i, r in enumerate(requests) if len(r.body) < 4096]
+    large = [i for i, r in enumerate(requests) if len(r.body) >= 4096]
+    order = list(small)
+    for j, i in enumerate(large):
+        order.insert(int((j + 1) * 0.8 * len(small) / (len(large) + 1)), i)
+    units = [(i + 1, [encode_request(requests[i], i + 1, mode=2)])
+             for i in order]
+    t0 = time.perf_counter()
+    out = drive(sock, units, SERVE_CONNECTIONS, SERVE_WINDOW, timeout=300)
+    wall = time.perf_counter() - t0
+    bad = [(r.request_id, out[i + 1][0], want[i])
+           for i, r in enumerate(requests)
+           if out[i + 1][0]["fail_open"]
+           or wire_key(r.request_id, out[i + 1][0]) != want[i]]
+    if bad:
+        raise SystemExit("serve: %d of %d wire verdicts differ from the cpu "
+                         "reference, first: %s"
+                         % (len(bad), len(requests), bad[:1]))
+    lat = np.array([out[i + 1][1] for i in range(len(requests))]) * 1e3
+    return {"wall_s": wall, "wire_req_per_s": len(requests) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def check_serve_metrics(what: str, metrics: str) -> float:
+    """Fail unless every SERVE_ZERO series reads 0 and engine_us is above
+    0; returns engine_us."""
+    nonzero = {n: v for n in SERVE_ZERO
+               for v in metric_values(metrics, n) if v[1] != 0}
+    if nonzero:
+        raise SystemExit("serve %s: counters that must read 0 do not: %s"
+                         % (what, nonzero))
+    engine_us = metric_values(metrics, "ipt_engine_us_sum")[0][1]
+    if engine_us <= 0:
+        raise SystemExit("serve %s: engine_us is %s" % (what, engine_us))
+    return engine_us
+
+
+def kernel_shapes(srv) -> dict:
+    """The server's ``/debug/kernels``: {kernel: {launches, shapes}}."""
+    status, body = srv.get("/debug/kernels")
+    if status != 200:
+        raise SystemExit("serve: /debug/kernels answered %d" % status)
+    return json.loads(body)
+
+
+def shape_delta(before: dict, after: dict) -> dict:
+    """{kernel: [shape]} of the launches made between two
+    ``/debug/kernels`` reads: launches, work and odd rows as differences,
+    the lengths of the latest launch; every launch's lengths must have
+    come from the host, so the work is known for all of them."""
+    out = {}
+    for name, a in after.items():
+        prev = {(s["B"], s["L"], s["carried"]): s
+                for s in before[name]["shapes"]}
+        rows = []
+        for s in a["shapes"]:
+            p = prev.get((s["B"], s["L"], s["carried"]))
+            d = dict(s)
+            for f in ("launches", "known", "steps", "odd_rows"):
+                d[f] = s[f] - (p[f] if p else 0)
+            if d["launches"] > 0:
+                rows.append(d)
+        if any(d["known"] != d["launches"] for d in rows):
+            raise SystemExit("serve: %s launches without host lengths: %s"
+                             % (name, rows))
+        if sum(d["launches"] for d in rows) != (
+                a["launches"] - before[name]["launches"]):
+            raise SystemExit("serve: %s shape tally disagrees with its "
+                             "launch count" % name)
+        out[name] = rows
+    return out
+
+
+def traffic_pool(requests, cases) -> np.ndarray:
+    """The bytes of the wire traffic (URIs, headers, bodies, stream
+    bodies), concatenated: what re-timed rows are cut from."""
+    parts = []
+    for r in requests:
+        parts.append(r.uri.encode("latin-1", "replace"))
+        parts += [("%s: %s" % kv).encode("latin-1", "replace")
+                  for kv in r.headers.items()]
+        parts.append(r.body)
+    parts += [c.body for c in cases]
+    return np.frombuffer(b"\n".join(parts), np.uint8)
+
+
+def retime_shapes(label: str, scanner, kernel, plain_fn, tables, shapes,
+                  pool: np.ndarray, dev: torch.device, kind: str) -> dict:
+    """A kernel at each (B, L, carried) shape another process launched
+    it at (``shape_delta``): rows of ``pool`` cut to that shape's latest
+    lengths (and a seeded carried state and sticky match where the
+    launches carried one), through ``scanner`` -- parity with the plain
+    version, device time at the plan's segment length and unsplit, the
+    plain version's time (one host-driven call).  Each shape's times
+    count once per launch of it; the bound counts the work that process's
+    launches asked for.  Same result layout as ``retime_launches``."""
+    from ingress_plus_tpu_torch.ops.scan import from_numpy_u32
+
+    W, K1 = tables.n_words, tables.class_table.shape[0]
+    run = forced(kernel, scanner)
+    rng = np.random.default_rng(SEED + 8)
+    by_shape: dict = {}
+    err = 0
+    for s in shapes:
+        B, L, n = s["B"], s["L"], np.asarray(s["lengths"], np.int32)
+        at = rng.integers(0, len(pool) - L, B)
+        toks = np.stack([pool[a:a + L] for a in at])
+        args = [torch.from_numpy(toks).to(dev), torch.from_numpy(n).to(dev)]
+        if s["carried"]:
+            match_np, state_np = carried(B, W, rng)
+            args += [from_numpy_u32(state_np, dev),
+                     from_numpy_u32(match_np, dev)]
+        m, st = scanner(*args)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        m_ref, s_ref = plain_fn(*args)
+        b.record()
+        b.synchronize()
+        if not (torch.equal(m, m_ref) and torch.equal(st, s_ref)):
+            raise SystemExit("%s: kernel disagrees with its plain version at "
+                             "B=%d L=%d" % (label, B, L))
+        err = max(err, int((m.long() - m_ref.long()).abs().max()),
+                  int((st.long() - s_ref.long()).abs().max()))
+        k = s["launches"]
+        tm = timed_plan(lambda seg: run(*args, segment=seg), B, L, W,
+                        reps=10)
+        bd = bound_counts(B, L, W, K1, 1, s["carried"], kind, s["steps"],
+                          s["odd_rows"], k)
+        by_shape["%dx%d%s" % (B, L, "c" if s["carried"] else "")] = {
+            "B": B, "L": L, "carried": s["carried"], "G": tm["G"],
+            "segments": tm["segments"], "launches": k,
+            "ms": k * tm["ms"], "one_segment_ms": k * tm["one_segment_ms"],
+            "plain_ms": k * a.elapsed_time(b),
+            **{f: bd[f] for f in ("bound_ms", "ops_ms", "bytes_ms")}}
+    total = {f: sum(x[f] for x in by_shape.values())
+             for f in ("launches", "ms", "one_segment_ms", "plain_ms",
+                       "bound_ms", "ops_ms", "bytes_ms")}
+    total["bound_by"] = ("operations" if total["ops_ms"] >= total["bytes_ms"]
+                         else "bytes")
+    total["max_abs_err"] = err
+    for x in sorted(by_shape.values(), key=lambda x: (x["L"], x["B"])):
+        log("%s B=%d L=%d%s G=%d (%d segments): %d launches, bit-identical; "
+            "%.4f ms device (one segment %.4f ms; plain %.3f ms, bound "
+            "%.5f ms, %.1fx)"
+            % (label, x["B"], x["L"], " carried" if x["carried"] else "",
+               x["G"], x["segments"], x["launches"], x["ms"],
+               x["one_segment_ms"], x["plain_ms"], x["bound_ms"],
+               x["ms"] / x["bound_ms"]))
+    log("%s total: %d launches over %d shapes, %.4f ms device (one segment "
+        "%.4f ms; plain %.1f ms, bound %.5f ms by %s)"
+        % (label, total["launches"], len(by_shape), total["ms"],
+           total["one_segment_ms"], total["plain_ms"], total["bound_ms"],
+           total["bound_by"]))
+    return {"shapes": by_shape, "total": total}
+
+
+def phase_serve(requests, want, stream_keys, smi: str) -> dict:
+    """The serve plane on the card, driven over the wire (phase 8) with
+    the server's defaults; then the same requests against a
+    ``--confirm-workers auto`` server, for the pooled confirm's effect
+    under one interpreter lock."""
+    import dataclasses
+
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+    from ingress_plus_tpu_torch.serve.client import drive
+    from ingress_plus_tpu_torch.serve.normalize import Response
+    from ingress_plus_tpu_torch.serve.protocol import (
+        MODE_STREAM,
+        encode_chunk,
+        encode_request,
+        encode_response_scan,
+    )
+    from ingress_plus_tpu_torch.utils.stream_corpus import stream_cases
+    from ingress_plus_tpu_torch.utils.trace import (
+        stage_breakdown_from_metrics,
+    )
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    cases = stream_cases(STREAM_BODY, STREAM_CHUNK, SEED)
+    # the reference: phase 3's CPU verdicts, except for the bodies the
+    # Batcher reroutes to the stream lane (no 16 KB truncation there)
+    cpu = DetectionPipeline(load_pack(), device="cpu", fail_open=False)
+    plan_of = SimpleNamespace(OVERSIZE_THRESHOLD=Batcher.OVERSIZE_THRESHOLD)
+    want = list(want)
+    rerouted = []
+    for i, r in enumerate(requests):
+        plan = Batcher._reroute_plan(plan_of, r)
+        if plan is not None:
+            want[i] = verdict_key(oversized_reference(cpu, r, plan))
+            rerouted.append(r.request_id)
+    if not rerouted:
+        raise SystemExit("serve: no request is large enough to reroute")
+    with ServeChild() as srv:
+        path = json.loads(srv.get("/healthz")[1])["robustness"][
+            "device_path"]
+        if path["backend"] != "cuda" or path["scan_impl"] != "pallas3":
+            raise SystemExit("serve: /healthz device_path %s, want backend "
+                             "cuda and scan impl auto = pallas3" % path)
+        shapes0 = kernel_shapes(srv)
+        launches0 = kernel_launches(srv.metrics())
+        waves = [request_wave(srv.sock, requests, want) for _ in range(2)]
+        # the phase 6 bodies: the response leak as one response-scan
+        # frame (rerouted to the stream lane), the others chunked
+        sid = 100000
+        leak = [c for c in cases if isinstance(c.meta, Response)]
+        chunked = [c for c in cases if not isinstance(c.meta, Response)]
+        t2 = time.perf_counter()
+        got = drive(srv.sock, [(sid + i, [encode_response_scan(
+            dataclasses.replace(c.meta, body=c.body), sid + i)])
+            for i, c in enumerate(leak)], 1, 1, timeout=300)
+        stream_units = []
+        for j, c in enumerate(chunked):
+            rid = sid + len(leak) + j
+            frames = [encode_request(c.meta, rid, mode=2 | MODE_STREAM)]
+            for off in range(0, len(c.body), STREAM_CHUNK):
+                frames.append(encode_chunk(
+                    rid, c.body[off:off + STREAM_CHUNK],
+                    last=off + STREAM_CHUNK >= len(c.body)))
+            stream_units.append((rid, frames))
+        got.update(drive(srv.sock, stream_units, len(stream_units), 1,
+                         timeout=300))
+        stream_wall = time.perf_counter() - t2
+        ref = dict(zip((c.name for c in cases), stream_keys))
+        for k, c in enumerate(leak + chunked):
+            resp = got[sid + k][0]
+            if resp["fail_open"] or \
+                    wire_key(c.meta.request_id, resp) != ref[c.name]:
+                raise SystemExit("serve: stream %s differs from the cpu "
+                                 "reference: %s vs %s"
+                                 % (c.name, resp, ref[c.name]))
+        metrics = srv.metrics()
+        shapes1 = kernel_shapes(srv)
+        launches1 = kernel_launches(metrics)
+        startup_s = srv.startup_s
+    engine_us = check_serve_metrics("defaults", metrics)
+    launches = {k: launches1.get(k, 0) - launches0.get(k, 0)
+                for k in ("pair_scan", "step_scan")}
+    if launches["pair_scan"] <= 0 or launches["step_scan"] <= 0:
+        raise SystemExit("serve: kernels of the path never launched: %s"
+                         % launches)
+    shapes = shape_delta(shapes0, shapes1)
+    workers = int(metric_values(metrics, "ipt_confirm_workers")[0][1])
+    with ServeChild("--confirm-workers", "auto") as pooled:
+        auto_waves = [request_wave(pooled.sock, requests, want)
+                      for _ in range(2)]
+        auto_metrics = pooled.metrics()
+    check_serve_metrics("--confirm-workers auto", auto_metrics)
+    wire = sum(len(c.body) for c in cases)
+    res = {
+        "card": smi, "scan_impl": path["scan_impl"], "startup_s": startup_s,
+        "requests": len(requests), "identical_verdicts": len(requests),
+        "rerouted_to_stream_lane": rerouted,
+        "connections": SERVE_CONNECTIONS, "window": SERVE_WINDOW,
+        **waves[0], "second_wave": waves[1],
+        "stage_breakdown": stage_breakdown_from_metrics(metrics),
+        "engine_us_sum": engine_us,
+        "confirm_workers": workers,
+        "streams": len(cases), "stream_wire_bytes": wire,
+        "stream_wall_s": stream_wall,
+        "stream_mb_per_s": wire / stream_wall / 1e6,
+        "launches": launches,
+        "device_path": path,
+        "confirm_workers_auto": {
+            "confirm_workers": int(metric_values(
+                auto_metrics, "ipt_confirm_workers")[0][1]),
+            "waves": auto_waves,
+            "stage_breakdown": stage_breakdown_from_metrics(auto_metrics)},
+    }
+    log("serve: %d requests over %d connections x %d in flight, identical "
+        "to the cpu reference (%d rerouted to the stream lane); %.1f / %.1f "
+        "req/s on the wire (two waves), p50 %.2f ms p99 %.2f ms; 7 streams "
+        "identical, %.3f MB/s; %d confirm worker(s); kernel launches %s; "
+        "--confirm-workers auto (%d): %.1f / %.1f req/s, p50 %.2f ms p99 "
+        "%.2f ms"
+        % (len(requests), SERVE_CONNECTIONS, SERVE_WINDOW, len(rerouted),
+           waves[0]["wire_req_per_s"], waves[1]["wire_req_per_s"],
+           waves[0]["p50_ms"], waves[0]["p99_ms"], res["stream_mb_per_s"],
+           workers, launches, res["confirm_workers_auto"]["confirm_workers"],
+           auto_waves[0]["wire_req_per_s"], auto_waves[1]["wire_req_per_s"],
+           auto_waves[0]["p50_ms"], auto_waves[0]["p99_ms"]))
+    return res, shapes, traffic_pool(requests, cases)
+
+
+def phase_serve_kernels(tables, shapes, pool, dev: torch.device) -> dict:
+    """Both kernels at the serve path's own shapes (phase 8's
+    ``shape_delta``): the pair kernel as ``pallas3`` runs it
+    (``ByteScanner``), the step kernel as the stream lane does."""
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
+    from ingress_plus_tpu_torch.ops.scan import scan_bytes, scan_pairs
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+
+    return {
+        "pair_scan": retime_shapes(
+            "serve pair", ByteScanner(tables), PAIR_SCAN,
+            lambda t, n, *c: scan_pairs(tables, t, n, *c), tables,
+            shapes["pair_scan"], pool, dev, "pair"),
+        "step_scan": retime_shapes(
+            "serve step", StepScanner(tables), STEP_SCAN,
+            lambda t, n, *c: scan_bytes(tables, t, n, *c), tables,
+            shapes["step_scan"], pool, dev, "step")}
 
 
 def segment_rows(path: str, shapes) -> list:
@@ -1063,6 +1566,10 @@ def main() -> int:
     step = phase_step_kernel(kern["tables"], dev)
     pallas = phase_pallas_pipeline(cr, dev, requests, want)
     stream = phase_stream(cr, dev)
+    serve, serve_shapes, pool = phase_serve(requests, want,
+                                            stream["cpu_keys"], smi)
+    log("serve " + json.dumps(serve))
+    serve_k = phase_serve_kernels(kern["tables"], serve_shapes, pool, dev)
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -1070,7 +1577,8 @@ def main() -> int:
         "card": smi, "pipeline": pipe, "main_path": main_path,
         "scan_shapes": kern["shapes"], "edges": kern["edges"],
         "sweep": sweep, "step_scan": step, "pallas_pipeline": pallas,
-        "stream": stream, "sass": sass,
+        "stream": stream, "serve": serve, "serve_kernels": serve_k,
+        "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -1079,6 +1587,9 @@ def main() -> int:
     step_tot = {k: sum(p[k] for p in step_paths.values())
                 for k in ("launches", "ms", "one_segment_ms", "plain_ms",
                           "bound_ms", "ops_ms", "bytes_ms")}
+    step_tot["bound_by"] = ("operations"
+                            if step_tot["ops_ms"] >= step_tot["bytes_ms"]
+                            else "bytes")
     pair_segments = segment_rows("pallas3 batch path",
                                  main_path["shapes"].values())
     for c in ("raw_byte", "class_id"):
@@ -1090,55 +1601,62 @@ def main() -> int:
         + segment_rows("pallas batch path",
                        pallas["retimed"]["shapes"].values())
         + segment_rows("phase 4", step["shapes"]))
-    print(json.dumps({"kernels": [{
-        "name": "pair_scan",
-        "route": "cuda",
-        "source": "ingress_plus_tpu_torch/csrc/pair_scan.cu",
-        "replaces": "ingress_plus_tpu/ops/pallas_scan.py:270",
-        "configurations": ["raw_byte (pallas3)", "class_id (pallas2)"],
-        "parity": "bit-identical match and state, both configurations, "
-                  "B=%d x L in %s, B=%d x L in %s split and unsplit, every "
-                  "main-path bucket; edges %s"
-                  % (SCAN_B, list(SCAN_LS), SPLIT_B, list(SPLIT_LS),
-                     kern["edges"]),
-        "launches": pipe["launches"],
-        "max_abs_err": max(s[c]["max_abs_err"] for s in kern["shapes"]
-                           for c in ("raw_byte", "class_id")),
-        "shape": "the main path's %d launches, raw_byte, summed"
-                 % tot["launches"],
-        "ms": tot["ms"],
-        "one_segment_ms": tot["one_segment_ms"],
-        "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": tot["bound_by"],
-        "library_ms": None,
-        "segments": pair_segments,
-    }, {
-        "name": "step_scan",
-        "route": "cuda",
-        "source": "ingress_plus_tpu_torch/csrc/step_scan.cu",
-        "replaces": "ingress_plus_tpu/ops/pallas_scan.py:49",
-        "parity": "bit-identical match and state: B=%d x L in %s, B=%d x L "
-                  "in %s split and unsplit; edges %s; chained carry %s; "
-                  "every stream wave and pallas bucket"
-                  % (SCAN_B, list(SCAN_LS), SPLIT_B, list(SPLIT_LS),
-                     step["edges"], step["chain"]),
-        "launches": stream["launches"] + pallas["launches"],
-        "launches_by_path": {"stream": stream["launches"],
-                             "pallas_batch": pallas["launches"]},
-        "max_abs_err": max(s["max_abs_err"] for s in step["shapes"]),
-        "shape": "the stream lane's %d waves and the pallas batch path's %d "
-                 "launches, summed" % (stream["launches"],
-                                       pallas["launches"]),
-        "ms": step_tot["ms"],
-        "one_segment_ms": step_tot["one_segment_ms"],
-        "plain_ms": step_tot["plain_ms"],
-        "bound_ms": step_tot["bound_ms"],
-        "bound_by": ("operations" if step_tot["ops_ms"] >= step_tot["bytes_ms"]
-                     else "bytes"),
-        "library_ms": None,
-        "segments": step_segments,
-    }]}), flush=True)
+    source = {"pair_scan": ("ingress_plus_tpu_torch/csrc/pair_scan.cu",
+                            "ingress_plus_tpu/ops/pallas_scan.py:270"),
+              "step_scan": ("ingress_plus_tpu_torch/csrc/step_scan.cu",
+                            "ingress_plus_tpu/ops/pallas_scan.py:49")}
+
+    def entry(name, path, totals, err, **more):
+        """One kernels-line entry: every number over one path's
+        launches."""
+        return {"name": name, "route": "cuda", "source": source[name][0],
+                "replaces": source[name][1], "path": path,
+                "launches": totals["launches"], "max_abs_err": err,
+                **{k: totals[k] for k in ("ms", "one_segment_ms",
+                                          "plain_ms", "bound_ms",
+                                          "bound_by")},
+                "library_ms": None, **more}
+
+    serve_entries = [entry(
+        name, "serve plane (phase 8): %s" % what,
+        serve_k[name]["total"], serve_k[name]["total"]["max_abs_err"],
+        parity="bit-identical match and state at each of the serve path's "
+               "%d (B, L, carried) shapes" % len(serve_k[name]["shapes"]),
+        shape="the server's %d launches, each shape's device time once "
+              "per launch of it (rows cut from the wire traffic to the "
+              "shape's latest lengths); bound from the work the server "
+              "counted" % serve_k[name]["total"]["launches"],
+        segments=segment_rows("serve path",
+                              serve_k[name]["shapes"].values()))
+        for name, what in (("pair_scan", "batches on pallas3 (raw_byte)"),
+                           ("step_scan", "stream lane and oversized "
+                                         "bodies"))]
+    print(json.dumps({"kernels": serve_entries + [entry(
+        "pair_scan", "library: pallas3 batch path (phase 3)", tot,
+        max(s[c]["max_abs_err"] for s in kern["shapes"]
+            for c in ("raw_byte", "class_id")),
+        configurations=["raw_byte (pallas3)", "class_id (pallas2)"],
+        parity="bit-identical match and state, both configurations, B=%d x "
+               "L in %s, B=%d x L in %s split and unsplit, every main-path "
+               "bucket; edges %s"
+               % (SCAN_B, list(SCAN_LS), SPLIT_B, list(SPLIT_LS),
+                  kern["edges"]),
+        shape="the batch path's %d launches, raw_byte, summed"
+              % tot["launches"],
+        segments=pair_segments), entry(
+        "step_scan", "library: stream lane and pallas batch path "
+                     "(phases 5, 6)", step_tot,
+        max(s["max_abs_err"] for s in step["shapes"]),
+        launches_by_path={"stream": stream["launches"],
+                          "pallas_batch": pallas["launches"]},
+        parity="bit-identical match and state: B=%d x L in %s, B=%d x L in "
+               "%s split and unsplit; edges %s; chained carry %s; every "
+               "stream wave and pallas bucket"
+               % (SCAN_B, list(SCAN_LS), SPLIT_B, list(SPLIT_LS),
+                  step["edges"], step["chain"]),
+        shape="the stream lane's %d waves and the pallas batch path's %d "
+              "launches, summed" % (stream["launches"], pallas["launches"]),
+        segments=step_segments)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,14 @@ Returns:
     scores     (Q,)  int32 — anomaly score (sum of hit rules' severities)
 
 Every result leaves the engine as a numpy array: ``np.asarray`` on a CUDA
-tensor fails, so the engine copies to the host itself.
+tensor fails, so the engine copies to the host itself, on the calling
+thread (a serve lane's worker: the dispatch thread never waits on the
+card).
+
+On a CUDA device both kernels (``csrc/pair_scan.cu``, ``csrc/step_scan.cu``)
+are built and loaded on that card when the engine is constructed, so no
+``nvcc`` run and no first load ever happens inside a serving cycle; a
+build or load failure raises from the constructor.
 """
 
 from __future__ import annotations
@@ -29,15 +36,32 @@ import torch
 
 from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
 from ingress_plus_tpu_torch.compiler.seclang import CLASSES
-from ingress_plus_tpu_torch.ops.pair_scan import ByteScanner, PairScanner
-from ingress_plus_tpu_torch.ops.step_scan import StepScanner
+from ingress_plus_tpu_torch.ops.pair_scan import (
+    PAIR_SCAN,
+    ByteScanner,
+    PairScanner,
+)
+from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
 from ingress_plus_tpu_torch.ops.scan import (
     ScanTables,
     from_numpy_u32,
     scan_pairs,
     to_numpy_u32,
 )
+from ingress_plus_tpu_torch.utils import faults
 from ingress_plus_tpu_torch.utils.device import DeviceLike, resolve_device
+
+#: serving name -> scanner class of the kernel implementations
+KERNEL_SCANNERS = {"pallas3": ByteScanner, "pallas2": PairScanner,
+                   "pallas": StepScanner}
+
+
+def load_kernels(device: torch.device) -> None:
+    """Build (once per process) and load both scan kernels on ``device``,
+    running each one's per-card setup.  Raises on any build or load
+    error: a serving process must not start without its kernels."""
+    for kernel in (PAIR_SCAN, STEP_SCAN):
+        kernel.library(device)
 
 
 class EngineTables:
@@ -184,6 +208,17 @@ class EngineTables:
         )
         return cls._from_arrays(scan, arrays, dev)
 
+    def to(self, device: torch.device) -> "EngineTables":
+        """A copy of every table on ``device`` (a serve lane's card)."""
+        s = self.scan
+        scan = ScanTables(**{k: getattr(s, k).to(device) for k in (
+            "byte_table", "init_mask", "final_mask", "byte_class",
+            "class_table", "pair_reach", "pair_final")})
+        return type(self)(scan, *(getattr(self, k).to(device) for k in (
+            "factor_word", "factor_bit", "factor_rule", "rule_sv",
+            "rule_score", "rule_class", "rule_no_prefilter",
+            "rule_group")))
+
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """The leaves as numpy, in the JAX package's dtypes (words
         uint32, factor_word/rule_group int32)."""
@@ -265,29 +300,47 @@ class DetectionEngine:
       byte, exact state), the stream lane's scan.
 
     A kernel implementation on a CPU device raises, as does ``"pair"``
-    on a CUDA device."""
+    on a CUDA device.  ``scan_impl`` may be reassigned (the serve CLI's
+    ``--scan-impl`` does); the same rule is checked then."""
 
     SCAN_IMPLS = ("pair", "pallas", "pallas2", "pallas3")
 
     def __init__(self, cr: CompiledRuleset, scan_impl: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # one name per card: lanes, replicas and the recompile gauge
+            # compare devices, and "cuda" != "cuda:0"
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if scan_impl is None:
             scan_impl = "pallas3" if self.device.type == "cuda" else "pair"
-        if scan_impl not in self.SCAN_IMPLS:
-            raise ValueError("unknown scan_impl %r (one of %s)"
-                             % (scan_impl, ", ".join(self.SCAN_IMPLS)))
-        if (scan_impl == "pair") != (self.device.type == "cpu"):
-            raise ValueError(
-                "scan_impl %r cannot run on a %s device: the kernel "
-                "implementations (pallas, pallas2, pallas3) need CUDA, the "
-                "plain 'pair' scan is the CPU path"
-                % (scan_impl, self.device.type))
+        self.scan_impl = scan_impl
         if self.device.type == "cuda":
             # the mapping products must be exact float32, never TF32
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.scan_impl = scan_impl
+            load_kernels(self.device)
         self._install(cr)
+
+    @property
+    def scan_impl(self) -> str:
+        return self._scan_impl
+
+    @scan_impl.setter
+    def scan_impl(self, impl: str) -> None:
+        self.check_impl(impl, self.device)
+        self._scan_impl = impl
+
+    @classmethod
+    def check_impl(cls, impl: str, device: torch.device) -> None:
+        """Raise ValueError unless ``impl`` can run on ``device``."""
+        if impl not in cls.SCAN_IMPLS:
+            raise ValueError("unknown scan_impl %r (one of %s)"
+                             % (impl, ", ".join(cls.SCAN_IMPLS)))
+        if (impl == "pair") != (device.type == "cpu"):
+            raise ValueError(
+                "scan_impl %r cannot run on a %s device: the kernel "
+                "implementations (pallas, pallas2, pallas3) need CUDA, the "
+                "plain 'pair' scan is the CPU path" % (impl, device.type))
 
     def _install(self, cr: CompiledRuleset) -> None:
         self.ruleset = cr
@@ -298,17 +351,73 @@ class DetectionEngine:
         self.head_tables = (
             EngineTables.from_ruleset(cr, head_only=True, device=self.device)
             if 0 < cr.tables.n_head_words < cr.tables.n_words else None)
-        self._scanner = None
-        if self.scan_impl == "pallas3":
-            self._scanner = ByteScanner(self.tables.scan)
-        elif self.scan_impl == "pallas2":
-            self._scanner = PairScanner(self.tables.scan)
-        elif self.scan_impl == "pallas":
-            self._scanner = StepScanner(self.tables.scan)
+        # {(impl, device): scanner} and {device: (tables, head_tables)}
+        # replicas for serve lanes on other cards, built at first use
+        self._scanners: Dict[tuple, object] = {}
+        self._device_tables: Dict[torch.device, tuple] = {}
+
+    def rebuilt(self, cr: CompiledRuleset) -> "DetectionEngine":
+        """Fresh engine of the same kind, impl and device on a new
+        ruleset (the batcher's hot swap)."""
+        return type(self)(cr, scan_impl=self.scan_impl, device=self.device)
 
     def swap_ruleset(self, cr: CompiledRuleset) -> None:
         """Install a new pack generation on the same device and impl."""
         self._install(cr)
+
+    def tables_for(self, device: Optional[torch.device] = None):
+        """The (tables, head_tables) pair on ``device`` — copied once per
+        card per generation for a serve lane on another card; ``None``
+        or the engine's own device is the engine's own pair."""
+        if device is None or torch.device(device) == self.device:
+            return self.tables, self.head_tables
+        device = torch.device(device)
+        pair = self._device_tables.get(device)
+        if pair is None:
+            pair = (self.tables.to(device),
+                    (self.head_tables.to(device)
+                     if self.head_tables is not None else None))
+            self._device_tables[device] = pair
+        return pair
+
+    def scanner_for(self, device: Optional[torch.device] = None):
+        """The live impl's kernel scanner on ``device`` (built once per
+        impl, card and generation); None for the plain ``pair`` scan."""
+        cls = KERNEL_SCANNERS.get(self.scan_impl)
+        if cls is None:
+            return None
+        dev = self.device if device is None else torch.device(device)
+        key = (self.scan_impl, dev)
+        sc = self._scanners.get(key)
+        if sc is None:
+            sc = self._scanners[key] = cls(self.tables_for(dev)[0].scan)
+        return sc
+
+    def exec_keys(self, device: Optional[torch.device] = None) -> tuple:
+        """What a dispatch on ``device`` would load for the first time:
+        the kernel of the live impl on that card (none for ``pair``) and
+        the table replica of that card.  The pipeline's recompile gauge
+        counts the keys it has not seen; kernels have no per-shape
+        executables, so shapes are not part of a key."""
+        dev = str(self.device if device is None else torch.device(device))
+        keys = (("tables", dev),)
+        if self.scan_impl in KERNEL_SCANNERS:
+            keys += (("kernel", self.scan_impl, dev),)
+        return keys
+
+    def scan_exec_shape(self, B: int, L: int):
+        """Executable-keying shape of one (B, L) scan dispatch: each
+        kernel is one build that takes every shape, so the bucket shape
+        itself (kept for callers of the JAX engine's API)."""
+        return (B, L)
+
+    def drop_compiled(self) -> None:
+        """Forget the scanners and the per-device table replicas (the
+        ``recompile_storm`` fault site): later dispatches rebuild them.
+        The kernels' shared libraries stay loaded — an ``nvcc`` run at
+        serve time would overrun the hang budget."""
+        self._scanners = {}
+        self._device_tables = {}
 
     def device_info(self) -> dict:
         """Geometry + impl of the live device tables."""
@@ -335,44 +444,72 @@ class DetectionEngine:
         return self.head_tables is not None and self.scan_impl == "pair"
 
     def _scan(self, tabs: EngineTables, tok: torch.Tensor,
-              ln: torch.Tensor) -> torch.Tensor:
-        if self._scanner is not None:
-            m, _ = self._scanner(tok, ln)
+              ln: torch.Tensor, device: Optional[torch.device] = None
+              ) -> torch.Tensor:
+        """Match words of one bucket: ``tok`` on the scan's device,
+        ``ln`` on the host (a kernel copies its lengths to the card and
+        tallies the work they ask for)."""
+        scanner = self.scanner_for(device)
+        if scanner is not None:
+            m, _ = scanner(tok, ln)
         else:
-            m, _ = scan_pairs(tabs.scan, tok, ln)
+            m, _ = scan_pairs(tabs.scan, tok, ln.to(tok.device))
         return m
 
-    def _to_dev(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x)).to(self.device)
+    def _to_dev(self, x, device: Optional[torch.device] = None
+                ) -> torch.Tensor:
+        dev = self.device if device is None else device
+        return torch.as_tensor(np.asarray(x)).to(dev)
 
     def detect(self, tokens, lengths, row_req, row_sv, num_requests: int
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One bucket: (rule_hits, class_hits, scores) as numpy."""
+        # fault-injection sites (utils/faults.py): a wedged device is a
+        # sleep here (the batcher's dispatch watchdog must catch it), a
+        # crashed dispatch is a raise (the breaker must count it)
+        faults.sleep_if("dispatch_hang")
+        faults.raise_if("dispatch_raise")
         m = self._scan(self.tables, self._to_dev(tokens),
-                       self._to_dev(lengths))
+                       torch.as_tensor(np.asarray(lengths)))
         out = map_match_words(self.tables, m, self._to_dev(row_req),
                               self._to_dev(row_sv), num_requests)
         return tuple(x.cpu().numpy() for x in out)
 
+    def detect_device(self, tokens, lengths, row_req, row_sv,
+                      num_requests: int) -> np.ndarray:
+        """One bucket's (Q, R) rule hits as numpy."""
+        return self.detect(tokens, lengths, row_req, row_sv,
+                           num_requests)[0]
+
     def detect_device_multi(self, buckets: Sequence, num_requests: int,
-                            head_only: bool = False) -> np.ndarray:
+                            head_only: bool = False,
+                            device: Optional[torch.device] = None
+                            ) -> np.ndarray:
         """Multi-bucket dispatch with ONE mapping pass: each length bucket
         scans on its own, then the factor→rule mapping runs once on the
         concatenated match words, padded to a power-of-two row count.
 
         ``head_only=True`` (caller asserts no row carries a body/response
         stream-variant) scans the sliced head tables where the impl
-        honors them.  Returns the (Q, R) rule hits as numpy."""
-        tabs = (self.head_tables
+        honors them.  ``device`` pins the dispatch to one serve lane's
+        card: inputs go there and the scan runs against that card's
+        table replica (``tables_for``), on the calling thread's current
+        stream.  Returns the (Q, R) rule hits as numpy."""
+        faults.sleep_if("dispatch_hang")
+        faults.raise_if("dispatch_raise")
+        dev = self.device if device is None else torch.device(device)
+        full_tabs, head_tabs = self.tables_for(dev)
+        tabs = (head_tabs
                 if head_only and self.head_slicing_active()
-                else self.tables)
+                else full_tabs)
         if not buckets:
             return np.zeros((num_requests, max(self.ruleset.n_rules, 1)),
                             bool)
         ms, rrs, rss = [], [], []
         total = 0
         for tok, ln, rr, rs in buckets:
-            ms.append(self._scan(tabs, self._to_dev(tok), self._to_dev(ln)))
+            ms.append(self._scan(tabs, self._to_dev(tok, dev),
+                                 torch.as_tensor(np.asarray(ln)), dev))
             rrs.append(np.asarray(rr, np.int32))
             rss.append(np.asarray(rs, np.int8))
             total += int(np.asarray(tok).shape[0])
@@ -380,13 +517,13 @@ class DetectionEngine:
         W = tabs.scan.n_words
         if pad_total > total:
             ms.append(torch.zeros((pad_total - total, W), dtype=torch.int32,
-                                  device=self.device))
+                                  device=dev))
             rrs.append(np.full((pad_total - total,), num_requests - 1,
                                np.int32))
             rss.append(np.zeros((pad_total - total, rss[0].shape[1]),
                                 np.int8))
         rule_hits, _, _ = map_match_words(
             tabs, torch.cat(ms, dim=0),
-            self._to_dev(np.concatenate(rrs)),
-            self._to_dev(np.concatenate(rss)), num_requests)
+            self._to_dev(np.concatenate(rrs), dev),
+            self._to_dev(np.concatenate(rss), dev), num_requests)
         return rule_hits.cpu().numpy()

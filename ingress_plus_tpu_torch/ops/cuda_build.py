@@ -157,7 +157,8 @@ def device_words(x: Optional[torch.Tensor],
 
 
 class ScanKernel:
-    """ctypes binding of one scan kernel, plus its launch count.
+    """ctypes binding of one scan kernel, plus its launch count and a
+    per-shape tally of its launches (:meth:`shape_snapshot`).
 
     The scan kernels share one C interface, from ``csrc/<name>.cu``:
     ``<name>_launch(tokens, lengths, byte_class, class_tiles, k1,
@@ -172,6 +173,11 @@ class ScanKernel:
         self.name = name
         self.class_ids = class_ids
         self.launches = 0
+        # (B, L, carried) -> [launches, launches with host lengths,
+        # sum of clamp(length, 0, L), rows of odd length, the latest
+        # such launch's clamped lengths]
+        self._shapes: Dict[tuple, list] = {}
+        self._shapes_lock = threading.Lock()
         vp, ci = ctypes.c_void_p, ctypes.c_int
         self.lib = KernelLibrary(CSRC / (name + ".cu"), {
             name + "_launch": ([vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
@@ -183,6 +189,32 @@ class ScanKernel:
         """The loaded library, built at first use; with ``dev``, also
         set the kernel's shared-memory limit on that card (once)."""
         return self.lib.load(dev)
+
+    def _tally(self, B: int, L: int, carried: bool,
+               host: Optional[torch.Tensor]) -> None:
+        n = (None if host is None
+             else host.to(torch.int64).clamp(0, L).numpy())
+        with self._shapes_lock:
+            t = self._shapes.setdefault((B, L, carried), [0, 0, 0, 0, None])
+            t[0] += 1
+            if n is not None:
+                t[1] += 1
+                t[2] += int(n.sum())
+                t[3] += int((n & 1).sum())
+                t[4] = n
+
+    def shape_snapshot(self) -> list:
+        """The launches so far by (B, L, carried), as JSON-ready dicts:
+        ``launches``; over the ``known`` launches whose caller passed
+        the lengths on the host, ``steps`` (the sum of every row's
+        clamped length: the work the kernel did) and ``odd_rows``; and
+        ``lengths``, the latest such launch's clamped lengths."""
+        with self._shapes_lock:
+            items = [(k, list(v)) for k, v in sorted(self._shapes.items())]
+        return [{"B": B, "L": L, "carried": c, "launches": t[0],
+                 "known": t[1], "steps": t[2], "odd_rows": t[3],
+                 "lengths": None if t[4] is None else t[4].tolist()}
+                for (B, L, c), t in items]
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor,
                  class_tiles: torch.Tensor, init_mask: torch.Tensor,
@@ -199,12 +231,16 @@ class ScanKernel:
         without it (class id kernels only) ``tokens`` are int32 class
         ids.  Ids outside [0, K+1) read as the last (dead) row.  The
         launch splits rows by :func:`plan_segments`; ``segment`` forces
-        its segment length (``L`` or more: one segment)."""
+        its segment length (``L`` or more: one segment).  ``lengths``
+        may lie on the host: they are copied to the card, and the shape
+        tally then also counts the work they ask for."""
         label = self.name.replace("_", "-")
         dev = tokens.device
         if dev.type != "cuda":
             raise ValueError("%s kernel needs CUDA tensors, got %s"
                              % (label, dev))
+        host = lengths if lengths.device.type == "cpu" else None
+        lengths = lengths.to(dev, torch.int32).contiguous()
         if byte_class is None and not self.class_ids:
             raise ValueError("%s kernel needs a byte_class LUT" % label)
         B, L = tokens.shape
@@ -253,4 +289,5 @@ class ScanKernel:
                                % (label, err))
         if B and W:
             self.launches += 1
+            self._tally(B, L, state is not None, host)
         return match_out, state_out

@@ -63,7 +63,7 @@ class ByteScanner:
             return _plain(t, tokens, lengths, state, match)
         return PAIR_SCAN(
             tokens.to(torch.uint8).contiguous(),
-            lengths.to(dev, torch.int32).contiguous(),
+            lengths,
             self.class_tiles, t.init_mask, t.final_mask,
             byte_class=self.byte_class, state=device_words(state, dev),
             match=device_words(match, dev))
@@ -91,7 +91,7 @@ class PairScanner:
         cls = classes_for(t.byte_class, tokens, lengths.to(dev))
         return PAIR_SCAN(
             cls.to(torch.int32).contiguous(),
-            lengths.to(dev, torch.int32).contiguous(),
+            lengths,
             self.class_tiles, t.init_mask, t.final_mask,
             state=device_words(state, dev), match=device_words(match, dev))
 

@@ -62,7 +62,7 @@ class StepScanner:
             return scan_bytes(t, tokens, lengths, state, match)
         return STEP_SCAN(
             tokens.to(torch.uint8).contiguous(),
-            lengths.to(dev, torch.int32).contiguous(),
+            lengths,
             self.class_tiles, t.init_mask, t.final_mask,
             byte_class=self.byte_class, state=device_words(state, dev),
             match=device_words(match, dev))

@@ -1,0 +1,1556 @@
+"""UDS serve loop + observability endpoints.
+
+The port of ``ingress_plus_tpu/serve/server.py``: the same UDS wire
+protocol (the same frames, the same answers), the same HTTP surface for
+what this package has, and the serve plane on a CUDA card.  The
+dispatcher process of SURVEY.md §7 accepts framed requests from the
+native sidecar over a unix socket, batches them (batcher.py), and fans
+verdicts back (out-of-order, correlated by req_id).  A small HTTP
+listener exposes ``/metrics`` (Prometheus text format), ``/healthz``
+(LIVENESS: 200 while the process serves at all, carrying the fail-safe
+plane's state and ``robustness.device_path``), ``/readyz`` (READINESS:
+503 while the dispatch breaker is open or the brownout ladder sits above
+full detection — docs/ROBUSTNESS.md), ``/faults`` (the
+deterministic fault-injection plan, utils/faults.py), and
+``/debug/kernels`` (each scan kernel's launches by shape).
+
+Not here (their modules are not ported): a rules directory (the
+compiler; the pack is the committed bundled pack), the guarded rollout
+(``/rollout``, staged swaps, the LKG), the learned scoring head
+(``/scoring``), the post plane (``/wallarm-status`` answers
+``{"postanalytics": "disabled"}``), the admission front and ``--mesh``.
+
+Run:  python -m ingress_plus_tpu_torch.serve --socket /tmp/ipt.sock \
+          [--http-port 9901] [--mode block] [--platform cuda|cpu]
+
+``--platform`` defaults to ``cuda``: without a card the process exits
+non-zero at startup, it never serves on the CPU unless asked to.  On
+``cuda`` both scan kernels are built and loaded before the socket opens.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import signal
+import sys
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from ingress_plus_tpu_torch.models.engine import DetectionEngine
+from ingress_plus_tpu_torch.models.pipeline import Verdict
+from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
+from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
+from ingress_plus_tpu_torch.serve.batcher import Batcher
+from ingress_plus_tpu_torch.serve.stream import StreamState
+from ingress_plus_tpu_torch.serve.protocol import (
+    CHUNK_MAGIC,
+    MODE_STREAM,
+    PARSER_OFF_BITS,
+    REQ_MAGIC,
+    RSCAN_MAGIC,
+    WS_DIR_S2C,
+    WS_END,
+    WS_MAGIC,
+    MultiFrameReader,
+    ProtocolError,
+    decode_chunk,
+    decode_request,
+    decode_response_scan,
+    decode_ws,
+    encode_response,
+)
+from ingress_plus_tpu_torch.serve.websocket import DIR_C2S, DIR_S2C, WSStream
+from ingress_plus_tpu_torch.utils.trace import thread_uncaught_counts
+
+
+MAX_STREAMS_PER_CONN = 256  # bounded per-connection stream state
+MAX_WS_PER_CONN = 128       # bounded per-connection upgraded-conn state
+_OVERFLOW = object()        # sentinel: stream rejected by the cap
+
+#: HELP text per exported metric (Prometheus exposition hygiene: the
+#: promlint CI gate requires a HELP line for every TYPE).  Metrics not listed get a generated pointer to the docs —
+#: `_with_help` guarantees the pair structurally, this dict makes the
+#: important ones say something.
+METRIC_HELP = {
+    "ipt_requests_total": "requests served to a verdict",
+    "ipt_batches_total": "dispatch cycles executed",
+    "ipt_queue_delay_us_sum": "cumulative admission-queue wait (us)",
+    "ipt_batch_us_sum": "cumulative dispatch-cycle wall time (us)",
+    "ipt_max_batch": "largest batch seen since startup",
+    "ipt_fail_open_total": "verdicts delivered fail-open (pass+flag)",
+    "ipt_deadline_overruns_total":
+        "requests whose cycle exceeded the hard deadline",
+    "ipt_shed_total": "requests shed fail-open at admission, by reason",
+    "ipt_queue_depth": "items waiting in the admission queue",
+    "ipt_degraded_mode": "brownout ladder rung (0=full detection)",
+    "ipt_degraded_verdicts_total": "verdicts served degraded",
+    "ipt_breaker_state": "device breaker (0=closed 1=half_open 2=open)",
+    "ipt_breaker_trips_total": "device breaker trips",
+    "ipt_watchdog_hangs_total": "device dispatches past the hang budget",
+    "ipt_cpu_fallback_batches_total":
+        "batches served on the CPU confirm-only fallback",
+    "ipt_breaker_fail_open_batches_total":
+        "breaker-open batches of a card pipeline, failed open",
+    "ipt_stage_us": "per-stage latency histogram (log2 us buckets)",
+    "ipt_batch_size": "batch-size distribution (pow2 buckets)",
+    "ipt_rule_family_hits_total": "confirmed hits per CRS family",
+    "ipt_rule_family_candidates_total":
+        "prefilter candidates per CRS family",
+    "ipt_confirm_errors_total":
+        "candidates whose confirm regex could never evaluate",
+    "ipt_rules_runtime_dead": "rules observed dead at runtime",
+    "ipt_pad_waste_ratio": "1 - live bytes / padded rectangle bytes",
+    "ipt_dispatch_fill": "live rows / padded rows per dispatch",
+    "ipt_engine_recompiles_total":
+        "serve-time first loads (a kernel or a table replica on a device)",
+    "ipt_confirm_workers": "confirm pool size (1 = inline serial walk)",
+    "ipt_kernel_launches_total": "scan kernel launches by kernel",
+    "ipt_confirm_quick_reject_total":
+        "confirm evaluations resolved by the literal quick-reject",
+    "ipt_confirm_regex_evals_total": "confirm re.search evaluations",
+    "ipt_confirm_memo_hits_total": "per-cycle flood-memo hits",
+    "ipt_confirm_memo_misses_total": "per-cycle flood-memo misses",
+    "ipt_tenant_queue_depth": "per-tenant fair-queue depth",
+    "ipt_tenant_admitted_total": "requests admitted per tenant",
+    "ipt_tenant_shed_total": "requests shed per tenant",
+    "ipt_tenant_degraded_total": "degraded verdicts per tenant",
+    "ipt_thread_uncaught_total":
+        "uncaught worker-thread exceptions by thread family",
+    "ipt_lane_count": "serve lanes (one per device)",
+    "ipt_lane_requests_total": "requests dispatched per lane",
+    "ipt_lane_rows_total": "scan rows dispatched per lane",
+    "ipt_lane_errors_total": "dispatch errors per lane",
+    "ipt_lane_busy_us_sum": "device-busy wall time per lane (us)",
+    "ipt_ruleset_info": "live ruleset version/size (info joint)",
+    "ipt_scorer_active": "1 while a learned scoring head is installed",
+    "ipt_scorer_diff_total":
+        "verdicts where the learned head disagreed with fixed weights",
+}
+
+
+def _with_help(lines):
+    """Insert a ``# HELP`` line before every ``# TYPE`` line (once per
+    metric name) — the exposition-hygiene invariant the promlint gate
+    scrapes for.  Names without curated text get a docs pointer."""
+    out = []
+    seen = set()
+    for line in lines:
+        if line.startswith("# TYPE "):
+            name = line.split()[2]
+            if name not in seen:
+                seen.add(name)
+                out.append("# HELP %s %s" % (name, METRIC_HELP.get(
+                    name, "%s (docs/OBSERVABILITY.md)" % name)))
+        out.append(line)
+    return out
+
+
+class ServeLoop:
+    def __init__(self, batcher: Batcher, socket_path: str,
+                 http_port: int = 0,
+                 sidecar_status: Optional[str] = None):
+        self.batcher = batcher
+        self.socket_path = socket_path
+        self.http_port = http_port
+        # "host:port" of the native sidecar's --status-port listener:
+        # when set, /traces/request includes the sidecar hop's per-
+        # upstream EWMA latency (the sidecar stamps every frame's
+        # send→verdict time; its status JSON is where that surfaces)
+        self.sidecar_status = sidecar_status
+        self.started = time.time()
+        self.connections = 0
+        self._servers = []
+        # live UDS connection writers (aborted on shutdown)
+        self._conn_writers = set()
+
+    # ------------------------------------------------------- UDS plane
+
+    async def _handle_conn(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter) -> None:
+        self.connections += 1
+        self._conn_writers.add(writer)
+        frames = MultiFrameReader({REQ_MAGIC: "req", CHUNK_MAGIC: "chunk",
+                                   RSCAN_MAGIC: "rscan", WS_MAGIC: "ws"})
+        loop = asyncio.get_running_loop()
+        streams = {}  # req_id → StreamState | None (None = mode-off stream)
+        ws_streams = {}  # stream_id → WSStream (live captures only)
+        ws_shed = set()  # over-cap stream ids already counted in stats
+        write_lock = asyncio.Lock()
+        classes_index = {c: i for i, c in enumerate(
+            self.batcher.pipeline.ruleset.classes)}
+
+        async def respond(req_id: int, verdict) -> None:
+            data = encode_response(
+                req_id, verdict.attack, verdict.blocked, verdict.fail_open,
+                verdict.score,
+                [classes_index[c] for c in verdict.classes],
+                verdict.rule_ids)
+            try:
+                async with write_lock:
+                    writer.write(data)
+                    await writer.drain()
+            except (ConnectionError, RuntimeError):
+                pass  # client went away mid-verdict; nothing to deliver to
+
+        pending = set()
+
+        def send_pass(req_id: int, fail_open: bool = False) -> None:
+            # clean pass verdict (mode off / overflow shed), unscanned
+            t = asyncio.ensure_future(respond(req_id, Verdict(
+                request_id=str(req_id), blocked=False, attack=False,
+                classes=[], rule_ids=[], score=0, fail_open=fail_open)))
+            pending.add(t)
+            t.add_done_callback(pending.discard)
+
+        try:
+            while True:
+                data = await reader.read(1 << 16)
+                if not data:
+                    break
+                try:
+                    payloads = frames.feed(data)
+                except ProtocolError:
+                    break  # corrupt stream: drop the connection
+                for kind, payload in payloads:
+                    if kind == "chunk":
+                        try:
+                            req_id, last, chunk = decode_chunk(payload)
+                        except ProtocolError:
+                            continue
+                        if req_id not in streams:
+                            continue  # unknown/expired stream: ignore
+                        handle = streams[req_id]
+                        if isinstance(handle, StreamState) and chunk:
+                            self.batcher.feed_chunk(handle, chunk)
+                        if last:
+                            streams.pop(req_id)
+                            if not isinstance(handle, StreamState):
+                                send_pass(req_id,
+                                          fail_open=handle is _OVERFLOW)
+                                continue
+                            fut = self.batcher.finish_stream(handle)
+                            afut = asyncio.wrap_future(fut, loop=loop)
+                            task = asyncio.ensure_future(afut)
+                            pending.add(task)
+
+                            def _sdone(t, req_id=req_id):
+                                pending.discard(t)
+                                if (not t.cancelled()
+                                        and t.exception() is None
+                                        and not writer.is_closing()):
+                                    rt = asyncio.ensure_future(respond(
+                                        req_id, t.result()))
+                                    pending.add(rt)
+                                    rt.add_done_callback(pending.discard)
+                            task.add_done_callback(_sdone)
+                        continue
+                    if kind == "ws":
+                        # wallarm_parse_websocket analog: raw upgraded-
+                        # connection bytes; parse RFC 6455, scan messages
+                        # (serve/websocket.py), answer one RTPI per frame
+                        try:
+                            (req_id, stream_id, tenant, mode, wflags,
+                             wdata) = decode_ws(payload)
+                        except ProtocolError:
+                            continue
+                        ws = ws_streams.get(stream_id)
+                        if ws is None:
+                            eff_mode = mode & 0x03
+                            if eff_mode == 0:
+                                # mode off: answered per frame, NO dict
+                                # entry — sentinel entries only freed on
+                                # WS_END accumulated unboundedly on the
+                                # long-lived mux conn
+                                send_pass(req_id)
+                                continue
+                            if len(ws_streams) >= MAX_WS_PER_CONN:
+                                # over cap: per-frame fail-open verdicts,
+                                # state-free.  If capacity frees later
+                                # the mid-stream bytes poison the fresh
+                                # parser → still fail-open, deterministic.
+                                # The stats counter ticks once per SHED
+                                # STREAM, not per frame (bounded set; at
+                                # the cap it resets — slight over-count
+                                # beats unbounded growth)
+                                if stream_id not in ws_shed:
+                                    if len(ws_shed) >= 4096:
+                                        ws_shed.clear()
+                                    ws_shed.add(stream_id)
+                                    self.batcher.pipeline.stats \
+                                        .count_fail_open()
+                                send_pass(req_id, fail_open=True)
+                                continue
+                            off = frozenset(
+                                n for n, bit in PARSER_OFF_BITS.items()
+                                if mode & bit)
+                            ws = WSStream(self.batcher, tenant, eff_mode,
+                                          stream_id, parsers_off=off)
+                            ws_streams[stream_id] = ws
+                        direction = (DIR_S2C if wflags & WS_DIR_S2C
+                                     else DIR_C2S)
+                        pairs = ws.feed(direction, wdata)
+                        if wflags & WS_END:
+                            pairs += ws.close()
+                            ws_streams.pop(stream_id, None)
+
+                        prev_reply = getattr(ws, "_prev_reply", None)
+
+                        async def _ws_reply(req_id=req_id, ws=ws,
+                                            pairs=pairs, prev=prev_reply):
+                            # replies are serialized PER STREAM (frames
+                            # of one upgraded connection answer in
+                            # order, so the sticky verdict is monotonic
+                            # on the wire); streams stay concurrent
+                            if prev is not None:
+                                try:
+                                    await prev
+                                except Exception:
+                                    pass
+                            # fold completed-message verdicts into the
+                            # stream's sticky state, then answer with it
+                            for _msg, fut in pairs:
+                                try:
+                                    v = await asyncio.wrap_future(
+                                        fut, loop=loop)
+                                except Exception:
+                                    ws.sticky_fail_open = True
+                                    continue
+                                ws.merge(v)
+                            await respond(req_id, ws.verdict(req_id))
+
+                        t = asyncio.ensure_future(_ws_reply())
+                        ws._prev_reply = t
+                        pending.add(t)
+                        t.add_done_callback(pending.discard)
+                        continue
+                    try:
+                        if kind == "rscan":
+                            # response-side analysis (wallarm_parse_response
+                            # analog): a Response flows through the SAME
+                            # batcher/pipeline — its rows carry resp_*
+                            # stream ids, so only 95x-family rules apply
+                            req_id, mode, request = \
+                                decode_response_scan(payload)
+                            mode &= ~MODE_STREAM   # undefined for rscan
+                        else:
+                            req_id, mode, request = decode_request(payload)
+                    except ProtocolError:
+                        continue
+                    if mode & MODE_STREAM:
+                        # streaming body: inline body = first chunk
+                        eff_mode = mode & ~MODE_STREAM
+                        if eff_mode == 0:
+                            streams[req_id] = None
+                            continue
+                        if (sum(1 for h in streams.values()
+                                if isinstance(h, StreamState))
+                                >= MAX_STREAMS_PER_CONN):
+                            # per-connection memory bound (the MAX_FRAME
+                            # bound of the non-stream path): excess
+                            # streams pass fail-open, never accumulate
+                            streams[req_id] = _OVERFLOW
+                            self.batcher.pipeline.stats.count_fail_open()
+                            continue
+                        request.mode = eff_mode
+                        first_chunk = request.body
+                        request.body = b""
+                        handle = self.batcher.begin_stream(request)
+                        streams[req_id] = handle
+                        if first_chunk:
+                            self.batcher.feed_chunk(handle, first_chunk)
+                        continue
+                    if mode == 0:
+                        # wallarm_mode off: no processing at all (reference
+                        # semantics) — immediate pass, skip the engine
+                        send_pass(req_id)
+                        continue
+                    request.mode = mode
+                    fut = self.batcher.submit(request)
+                    afut = asyncio.wrap_future(fut, loop=loop)
+                    task = asyncio.ensure_future(afut)
+                    pending.add(task)
+
+                    def _done(t, req_id=req_id):
+                        pending.discard(t)
+                        if (not t.cancelled() and t.exception() is None
+                                and not writer.is_closing()):
+                            rt = asyncio.ensure_future(
+                                respond(req_id, t.result()))
+                            pending.add(rt)
+                            rt.add_done_callback(pending.discard)
+                    task.add_done_callback(_done)
+        finally:
+            for handle in streams.values():
+                if isinstance(handle, StreamState):
+                    self.batcher.abort_stream(handle)
+            for w in ws_streams.values():
+                if isinstance(w, WSStream):
+                    w.abort()
+            for t in pending:
+                t.cancel()
+            try:
+                writer.close()
+            except RuntimeError:
+                # interpreter-shutdown race: asyncio.run() can close the
+                # loop while a connection's finally block still runs —
+                # the transport dies with the loop either way, and the
+                # traceback would only be noise on stderr
+                pass
+            self._conn_writers.discard(writer)
+            self.connections -= 1
+
+    # ------------------------------------------------------ HTTP plane
+
+    def _pipeline_overlap_brief(self):
+        """The /healthz face of the flight recorder's overlap report
+        (utils/overlap.py): a bounded snapshot over the last 64 cycles,
+        None when the recorder is off or has seen no cycle yet (the
+        shared collector never raises — liveness is sacred)."""
+        from ingress_plus_tpu_torch.utils.overlap import brief, collect
+
+        return brief(collect(self.batcher, cycles=64))
+
+    def _metrics_text(self) -> str:
+        s = self.batcher.stats
+        pipeline = self.batcher.pipeline
+        p = pipeline.stats
+        # the live ruleset version, attached ONLY to per-generation
+        # series (RuleStats-backed values that reset at each hot swap,
+        # so a version change is an honest Prometheus counter reset).
+        # The cumulative counters spanning swaps stay UNLABELED — a
+        # mutable label on a counter that keeps its value would strand
+        # the old series and pre-load the new one; cross-reload
+        # attribution for those is the ipt_ruleset_info join.
+        ver = 'version="%s"' % pipeline.ruleset.version
+        lines = [
+            "# TYPE ipt_requests_total counter",
+            "ipt_requests_total %d" % s.completed,
+            "# TYPE ipt_batches_total counter",
+            "ipt_batches_total %d" % s.batches,
+            "# TYPE ipt_queue_delay_us_sum counter",
+            "ipt_queue_delay_us_sum %d" % s.queue_delay_us_sum,
+            "# TYPE ipt_batch_us_sum counter",
+            "ipt_batch_us_sum %d" % s.batch_us_sum,
+            "# TYPE ipt_max_batch gauge",
+            "ipt_max_batch %d" % s.max_batch_seen,
+            "# TYPE ipt_fail_open_total counter",
+            "ipt_fail_open_total %d" % p.fail_open,
+            "# TYPE ipt_deadline_overruns_total counter",
+            "ipt_deadline_overruns_total %d" % s.deadline_overruns,
+            "# TYPE ipt_streams_total counter",
+            "ipt_streams_total %d" % s.streams,
+            "# TYPE ipt_stream_chunks_total counter",
+            "ipt_stream_chunks_total %d" % s.stream_chunks,
+            "# TYPE ipt_stream_bytes_total counter",
+            "ipt_stream_bytes_total %d" % s.stream_bytes,
+            "# TYPE ipt_scan_rows_total counter",
+            "ipt_scan_rows_total %d" % p.rows,
+            "# TYPE ipt_scan_bytes_total counter",
+            "ipt_scan_bytes_total %d" % p.row_bytes,
+            "# TYPE ipt_prefilter_hits_total counter",
+            "ipt_prefilter_hits_total %d" % p.prefilter_rule_hits,
+            "# TYPE ipt_confirmed_hits_total counter",
+            "ipt_confirmed_hits_total %d" % p.confirmed_rule_hits,
+            "# TYPE ipt_ruleset_info gauge",
+            'ipt_ruleset_info{version="%s",rules="%d"} 1'
+            % (pipeline.ruleset.version, pipeline.ruleset.n_rules),
+        ]
+        # --- learned scoring lane (docs/LEARNED_SCORING.md): no head is
+        # ported, so the gauge reads 0 and the divergence series stays
+        # empty — the JAX server's surface without a head
+        lines += [
+            "# TYPE ipt_scorer_active gauge",
+            "ipt_scorer_active 0",
+        ]
+        # --- detection-plane telemetry: family-level hit
+        # series (bounded cardinality — full per-rule detail is
+        # JSON-only at /rules/stats) + device-efficiency gauges
+        rs = pipeline.rule_stats
+        from ingress_plus_tpu_torch.models.rule_stats import device_efficiency
+        from ingress_plus_tpu_torch.utils.trace import bounded_counter_series
+        lines.append("# TYPE ipt_scorer_diff_total counter")
+        lines += bounded_counter_series(
+            "ipt_scorer_diff_total", "kind", dict(p.scorer_diff))
+        fams = rs.family_totals()
+        lines.append("# TYPE ipt_rule_family_hits_total counter")
+        lines += bounded_counter_series(
+            "ipt_rule_family_hits_total", "family",
+            {f: t["confirmed"] for f, t in fams.items()},
+            extra={"version": rs.version})
+        lines.append("# TYPE ipt_rule_family_candidates_total counter")
+        lines += bounded_counter_series(
+            "ipt_rule_family_candidates_total", "family",
+            {f: t["candidates"] for f, t in fams.items()},
+            extra={"version": rs.version})
+        health_dead = int(((rs.candidates > 0) & rs.broken).sum())
+        eff = device_efficiency(p)
+        lines += [
+            "# TYPE ipt_confirm_errors_total counter",
+            "ipt_confirm_errors_total{%s} %d"
+            % (ver, int(rs.confirm_errors.sum())),
+            "# TYPE ipt_rules_runtime_dead gauge",
+            "ipt_rules_runtime_dead{%s} %d" % (ver, health_dead),
+            "# TYPE ipt_padded_rows_total counter",
+            "ipt_padded_rows_total %d" % p.padded_rows,
+            "# TYPE ipt_padded_bytes_total counter",
+            "ipt_padded_bytes_total %d" % p.padded_bytes,
+            # NaN when no dispatch happened yet (post-warmup reset): a
+            # literal 0 would read as worst-case fill / perfect waste
+            # and fire threshold alerts on every restart
+            "# TYPE ipt_pad_waste_ratio gauge",
+            "ipt_pad_waste_ratio %s"
+            % (eff["padding_waste_ratio"]
+               if eff["padding_waste_ratio"] is not None else "NaN"),
+            "# TYPE ipt_dispatch_fill gauge",
+            "ipt_dispatch_fill %s"
+            % (eff["dispatch_fill"]
+               if eff["dispatch_fill"] is not None else "NaN"),
+            "# TYPE ipt_engine_recompiles_total counter",
+            "ipt_engine_recompiles_total %d" % p.engine_compiles,
+            # every launch of each scan kernel in this process (the
+            # wrappers' own counts; 0 on cpu, where none launches)
+            "# TYPE ipt_kernel_launches_total counter",
+            'ipt_kernel_launches_total{kernel="pair_scan"} %d'
+            % PAIR_SCAN.launches,
+            'ipt_kernel_launches_total{kernel="step_scan"} %d'
+            % STEP_SCAN.launches,
+        ]
+        # --- fail-safe serve plane (docs/ROBUSTNESS.md): bounded
+        # admission, brownout ladder, dispatch breaker/watchdog
+        brk = self.batcher.breaker
+        lc = pipeline.load_controller
+        brk_state = {"closed": 0, "half_open": 1, "open": 2}.get(
+            brk.state, 2)
+        lines += [
+            "# TYPE ipt_queue_depth gauge",
+            "ipt_queue_depth %d" % self.batcher.queue_depth(),
+            "# TYPE ipt_degraded_mode gauge",
+            "ipt_degraded_mode %d" % lc.level,
+            "# TYPE ipt_degraded_verdicts_total counter",
+            "ipt_degraded_verdicts_total %d" % p.degraded,
+            "# TYPE ipt_breaker_state gauge",
+            "ipt_breaker_state %d" % brk_state,
+            "# TYPE ipt_breaker_trips_total counter",
+            "ipt_breaker_trips_total %d" % brk.trips,
+            "# TYPE ipt_watchdog_hangs_total counter",
+            "ipt_watchdog_hangs_total %d" % s.hangs,
+            "# TYPE ipt_cpu_fallback_batches_total counter",
+            "ipt_cpu_fallback_batches_total %d" % s.cpu_fallback_batches,
+            "# TYPE ipt_breaker_fail_open_batches_total counter",
+            "ipt_breaker_fail_open_batches_total %d"
+            % s.breaker_fail_open_batches,
+        ]
+        # silent-thread-death repair: uncaught worker-thread
+        # exceptions by normalized thread name — the runtime counterpart
+        # of concheck's lifecycle lint.  Bounded label set: thread-name
+        # prefixes are a small closed family (ipt-*).
+        from ingress_plus_tpu_torch.utils.trace import (
+            debug_locks_enabled,
+            lock_registry,
+        )
+        lines.append("# TYPE ipt_thread_uncaught_total counter")
+        lines += bounded_counter_series(
+            "ipt_thread_uncaught_total", "thread",
+            thread_uncaught_counts())
+        if debug_locks_enabled():
+            locks = lock_registry.snapshot()
+            lines += [
+                "# TYPE ipt_lock_order_violations gauge",
+                "ipt_lock_order_violations %d"
+                % locks["violation_count"],
+                "# TYPE ipt_lock_contended_total counter",
+                "ipt_lock_contended_total %d" % locks["contended"],
+            ]
+        # --- per-device lane plane (docs/MESH_SERVING.md): one series
+        # per lane, labeled device= — a single-lane server emits
+        # device="0" so dashboards are mesh-shape-agnostic.  The
+        # unlabeled aggregates above keep their single-lane meaning.
+        lane_snaps = self.batcher.lanes.snapshot()
+        brk_num = {"closed": 0, "half_open": 1, "open": 2}
+        lines.append("# TYPE ipt_lane_count gauge")
+        lines.append("ipt_lane_count %d" % len(lane_snaps))
+        # labeled twins of metrics whose TYPE lines (and unlabeled
+        # aggregates) were emitted above — no duplicate TYPE lines
+        for metric, getter in (
+                ("ipt_dispatch_fill",
+                 lambda ln: (ln["dispatch_fill"]
+                             if ln["dispatch_fill"] is not None
+                             else "NaN")),
+                ("ipt_breaker_state",
+                 lambda ln: brk_num.get(ln["breaker"]["state"], 2)),
+                ("ipt_breaker_trips_total",
+                 lambda ln: ln["breaker"]["trips"]),
+                ("ipt_watchdog_hangs_total",
+                 lambda ln: ln["hangs"]),
+        ):
+            for ln in lane_snaps:
+                lines.append('%s{device="%s"} %s'
+                             % (metric, ln["lane"], getter(ln)))
+        for metric, key, mtype in (
+                ("ipt_lane_requests_total", "requests", "counter"),
+                ("ipt_lane_rows_total", "rows", "counter"),
+                ("ipt_lane_errors_total", "errors", "counter"),
+                ("ipt_lane_busy_us_sum", "busy_us", "counter"),
+        ):
+            lines.append("# TYPE %s %s" % (metric, mtype))
+            for ln in lane_snaps:
+                lines.append('%s{device="%s"} %s'
+                             % (metric, ln["lane"], ln[key]))
+        lines.append("# TYPE ipt_shed_total counter")
+        lines += bounded_counter_series(
+            "ipt_shed_total", "reason", dict(p.shed))
+        # --- tenant isolation (docs/ROBUSTNESS.md "Tenant isolation"):
+        # per-tenant admission counters + guard state, bounded series
+        # with the standard "other" fold (tenant="-1" is the guard's
+        # tracking-overflow bucket); full per-tenant detail is
+        # JSON-only at /tenants, same cardinality policy as /rules/*
+        tg = self.batcher.tenant_guard
+        # fair-queue depths are guard-INDEPENDENT (--tenant-guard off
+        # disables quarantining, not fairness) — the gauge must not
+        # vanish on a guard-off deployment
+        lines.append("# TYPE ipt_tenant_queue_depth gauge")
+        lines += bounded_counter_series(
+            "ipt_tenant_queue_depth", "tenant",
+            {str(t): d for t, d in self.batcher._q.depths().items()})
+        if tg is not None:
+            tc = tg.counters()
+            lines.append("# TYPE ipt_tenant_admitted_total counter")
+            lines += bounded_counter_series(
+                "ipt_tenant_admitted_total", "tenant", tc["admitted"])
+            lines.append("# TYPE ipt_tenant_shed_total counter")
+            lines += bounded_counter_series(
+                "ipt_tenant_shed_total", "tenant", tc["shed"])
+            lines.append("# TYPE ipt_tenant_degraded_total counter")
+            lines += bounded_counter_series(
+                "ipt_tenant_degraded_total", "tenant", tc["degraded"])
+            brief = tg.brief()
+            lines += [
+                "# TYPE ipt_tenant_tracked gauge",
+                "ipt_tenant_tracked %d" % brief["tracked"],
+                "# TYPE ipt_tenant_quarantined gauge",
+                "ipt_tenant_quarantined %d" % len(brief["quarantined"]),
+                "# TYPE ipt_tenant_quarantines_total counter",
+                "ipt_tenant_quarantines_total %d" % brief["quarantines"],
+            ]
+        lines.append("# TYPE ipt_bucket_rows_total counter")
+        # dict() first: atomic copy vs the dispatch thread inserting a
+        # new L tier mid-scrape (see rule_stats.device_efficiency)
+        lines += bounded_counter_series(
+            "ipt_bucket_rows_total", "bucket",
+            {str(k): v for k, v in dict(p.bucket_rows).items()})
+        # stage-level latency attribution: one Prometheus
+        # histogram per pipeline stage, so p50/p99 per stage are
+        # scrapeable without external tooling (the reference gets this
+        # from the controller's prometheus histograms + nginx spans)
+        lines.append("# TYPE ipt_stage_us histogram")
+        for stage, hist in self.batcher.hist.items():
+            lines += hist.prometheus("ipt_stage_us", {"stage": stage})
+        lines.append("# TYPE ipt_batch_size histogram")
+        lines += self.batcher.batch_size_hist.prometheus("ipt_batch_size")
+        lines += [
+            "# TYPE ipt_prep_us_sum counter",
+            "ipt_prep_us_sum %d" % p.prep_us,
+            "# TYPE ipt_engine_us_sum counter",
+            "ipt_engine_us_sum %d" % p.engine_us,
+            "# TYPE ipt_confirm_us_sum counter",
+            "ipt_confirm_us_sum %d" % p.confirm_us,
+        ]
+        # confirm plane (docs/CONFIRM_PLANE.md): pool geometry, wedged-
+        # worker shares, flood-memo outcome counters, and the
+        # generation-scoped quick-reject totals (they reset at swap
+        # like confirm_errors — the version label makes that an honest
+        # counter reset)
+        pool = pipeline.confirm_pool
+        qr = pipeline.rule_stats.quick_reject_summary()
+        lines += [
+            "# TYPE ipt_confirm_workers gauge",
+            "ipt_confirm_workers %d" % pool.n_workers,
+            "# TYPE ipt_confirm_workers_replaced_total counter",
+            "ipt_confirm_workers_replaced_total %d" % pool.workers_replaced,
+            "# TYPE ipt_confirm_hangs_total counter",
+            "ipt_confirm_hangs_total %d" % p.confirm_hangs,
+            "# TYPE ipt_confirm_memo_hits_total counter",
+            "ipt_confirm_memo_hits_total %d" % p.confirm_memo_hits,
+            "# TYPE ipt_confirm_memo_misses_total counter",
+            "ipt_confirm_memo_misses_total %d" % p.confirm_memo_misses,
+            "# TYPE ipt_confirm_quick_reject_total counter",
+            'ipt_confirm_quick_reject_total{version="%s"} %d'
+            % (pipeline.rule_stats.version, qr["skips"]),
+            "# TYPE ipt_confirm_regex_evals_total counter",
+            'ipt_confirm_regex_evals_total{version="%s"} %d'
+            % (pipeline.rule_stats.version, qr["regex_evals"]),
+        ]
+        return "\n".join(_with_help(lines)) + "\n"
+
+    def http_get(self, path: str) -> Tuple[str, str, bytes]:
+        """Synchronous in-process GET against the observability plane:
+        (status, content-type, body) exactly as :meth:`_route_http`
+        would serve it over TCP.  The fleet aggregator's in-process
+        transport (fleetgate, tests) scrapes through this instead of
+        binding N real HTTP ports; runs the route on a private event
+        loop, so call it from any thread EXCEPT the serve loop's own."""
+        return asyncio.run(self._route_http("GET", path, b""))
+
+    def _scrape_sidecar(self) -> Optional[dict]:
+        """One-shot scrape of the sidecar's --status-port JSON (runs in
+        an executor thread — never on the event loop).  The per-upstream
+        ``ewma_ms`` is the sidecar's own send→verdict stamp (peak-EWMA),
+        i.e. the hop this serve loop cannot measure from inside."""
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(
+                    "http://%s/" % self.sidecar_status, timeout=2) as r:
+                st = json.loads(r.read())
+        except Exception as e:
+            return {"error": "sidecar status unreachable: %s" % e}
+        return {
+            "note": "per-upstream EWMA of the sidecar hop "
+                    "(frame send -> verdict), stamped by the sidecar",
+            "upstreams": st.get("upstreams"),
+            "pending": st.get("pending"),
+            "late_responses": st.get("late_responses"),
+        }
+
+    async def _handle_http(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter) -> None:
+        try:
+            line = await asyncio.wait_for(reader.readline(), timeout=5)
+            parts = line.split()
+            method = parts[0].decode() if parts else "GET"
+            path = parts[1].decode() if len(parts) > 1 else "/"
+            clen = 0
+            while True:
+                h = (await reader.readline()).strip()
+                if not h:
+                    break
+                if h.lower().startswith(b"content-length:"):
+                    clen = int(h.split(b":", 1)[1])
+            payload = (await reader.readexactly(clen)) if clen else b""
+            status, ctype, body = await self._route_http(method, path,
+                                                         payload)
+            writer.write(
+                b"HTTP/1.1 " + status.encode()
+                + b"\r\nContent-Type: " + ctype.encode()
+                + b"\r\nContent-Length: " + str(len(body)).encode()
+                + b"\r\nConnection: close\r\n\r\n" + body)
+            await writer.drain()
+        except (asyncio.TimeoutError, asyncio.IncompleteReadError,
+                IndexError, ValueError, ConnectionError):
+            pass
+        finally:
+            writer.close()
+
+    async def _route_http(self, method: str, path: str, payload: bytes):
+        """Observability + dynamic-config plane (the configuration.lua†
+        unix-socket endpoint analog — SURVEY.md §3.2 no-reload path).
+
+        Mutating routes run in a worker thread: they contend on the
+        batcher's swap lock (held across each in-flight detect) and do
+        disk/compile work — blocking the event loop here would freeze
+        verdict delivery for every connection."""
+        pipeline = self.batcher.pipeline
+        loop = asyncio.get_running_loop()
+        if path.startswith("/healthz"):
+            # LIVENESS only: 200 while the process can answer at all —
+            # a browned-out pod must be left alive to recover, not
+            # restarted into a cold-compile storm.  Readiness (pull
+            # from rotation) is /readyz below.
+            s = self.batcher.stats
+            return "200 OK", "application/json", json.dumps({
+                "status": "ok",
+                "uptime_s": round(time.time() - self.started, 1),
+                "ruleset": pipeline.ruleset.version,
+                "robustness": {
+                    "breaker": self.batcher.breaker.snapshot(),
+                    "ladder": pipeline.load_controller.snapshot(),
+                    "queue_depth": self.batcher.queue_depth(),
+                    "queue_cap": self.batcher.queue_cap,
+                    "shed": dict(pipeline.stats.shed),
+                    "degraded_verdicts": pipeline.stats.degraded,
+                    "hangs": s.hangs,
+                    "cpu_fallback_batches": s.cpu_fallback_batches,
+                    "breaker_fail_open_batches":
+                        s.breaker_fail_open_batches,
+                    "watchdog_released": s.watchdog_released,
+                    # per-device lane plane (docs/MESH_SERVING.md);
+                    # `dbg breaker` renders the lane table from here
+                    "lanes": self.batcher.lanes.snapshot(),
+                    # parallel confirm plane (docs/CONFIRM_PLANE.md):
+                    # pool geometry + wedged-worker accounting
+                    "confirm_plane": {
+                        **pipeline.confirm_pool.snapshot(),
+                        "hangs": pipeline.stats.confirm_hangs,
+                        "memo_entries": pipeline.confirm_memo_entries,
+                        # cross-cycle verdict cache (docs/RETUNE.md)
+                        "verdict_cache": (
+                            pipeline.confirm_cache.snapshot()
+                            if getattr(pipeline, "confirm_cache", None)
+                            is not None else None),
+                    },
+                    # tenant isolation (docs/ROBUSTNESS.md): guard
+                    # policy + who is quarantined right now; the full
+                    # per-tenant table is /tenants
+                    "tenant_guard": (
+                        self.batcher.tenant_guard.brief()
+                        if self.batcher.tenant_guard is not None
+                        else None),
+                    # uncaught worker exceptions by thread family —
+                    # nonzero here means a thread died that nothing
+                    # else surfaced
+                    "thread_uncaught": thread_uncaught_counts(),
+                    # raw-byte device path: impl + host contract +
+                    # backend (cuda/cpu, card name) + lane placement
+                    "device_path": self.batcher.device_path_snapshot(),
+                },
+                # cycle flight recorder: the measured pipeline-overlap
+                # brief — scan↔confirm overlap, drain occupancy,
+                # critical-path ranking, bounding thread.  null =
+                # recorder off or no cycles in the ring yet.
+                "pipeline_overlap": self._pipeline_overlap_brief(),
+            }).encode()
+        if path.startswith("/readyz"):
+            # READINESS (docs/ROBUSTNESS.md): unready while the breaker
+            # is open/probing or the brownout ladder is above full
+            # detection — the k8s service stops routing NEW traffic
+            # here while in-flight verdicts still drain (fail-open)
+            brk = self.batcher.breaker.snapshot()
+            lc = pipeline.load_controller
+            reasons = []
+            # an OPEN breaker whose cooldown has elapsed (probe_due) or
+            # a HALF_OPEN one counts as ready: the canary that would
+            # close it can only arrive if traffic routes here again —
+            # staying unready would deadlock an out-of-rotation pod.
+            # Mesh pools stay ready while ANY lane can serve — one dead
+            # card is a capacity event, not a readiness event.
+            if not self.batcher.device_available():
+                reasons.append("breaker_open")
+            if lc.level > 0:
+                reasons.append("degraded_%s" % lc.snapshot()["mode"])
+            body = json.dumps({
+                "ready": not reasons,
+                "reasons": reasons,
+                "breaker": brk["state"],
+                "degraded_mode": lc.level,
+            }).encode()
+            return (("200 OK" if not reasons
+                     else "503 Service Unavailable"),
+                    "application/json", body)
+        if path.startswith("/faults"):
+            # deterministic fault-injection plane (utils/faults.py):
+            # GET = the active plan + firing counters; POST {"spec":
+            # "...", "seed": N} installs a plan, POST {} clears it
+            from ingress_plus_tpu_torch.utils import faults as faults_mod
+            if method == "POST":
+                try:
+                    spec = json.loads(payload or b"{}")
+                    if not isinstance(spec, dict):
+                        raise ValueError("payload must be a JSON object")
+                    if spec.get("spec"):
+                        faults_mod.install(faults_mod.FaultPlan.from_spec(
+                            str(spec["spec"]),
+                            seed=int(spec.get("seed", 0))))
+                    else:
+                        faults_mod.clear()
+                except (ValueError, TypeError,
+                        json.JSONDecodeError) as e:
+                    return ("400 Bad Request", "application/json",
+                            json.dumps({"error": str(e)}).encode())
+            plan = faults_mod.active()
+            return ("200 OK", "application/json", json.dumps({
+                "active": plan is not None,
+                "plan": plan.snapshot() if plan is not None else None,
+            }).encode())
+        if path.startswith("/metrics"):
+            return ("200 OK", "text/plain; version=0.0.4",
+                    self._metrics_text().encode())
+        if path.startswith("/traces/request"):
+            # post-hoc slow-verdict attribution by wire req_id: the
+            # batch's per-stage spans, the slow-ring exemplar when the
+            # request was retained there, and (when --sidecar-status is
+            # configured) the sidecar hop's per-upstream EWMA timing
+            from urllib.parse import parse_qs, urlsplit
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            rid = (q.get("id") or [""])[0]
+            if not rid:
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": "missing ?id="}).encode())
+            batch = self.batcher.traces.find_request(rid)
+            exemplar = self.batcher.slow.find_request(rid)
+            out = {
+                "request_id": rid,
+                "found": batch is not None or exemplar is not None,
+                "batch": batch,
+                "stages": batch["stages"] if batch else None,
+                "exemplar": exemplar,
+            }
+            if self.sidecar_status:
+                out["sidecar"] = await loop.run_in_executor(
+                    None, self._scrape_sidecar)
+            # always 200: it's a query ("was this id seen recently"),
+            # and found=false is a meaningful answer (aged out of ring)
+            return ("200 OK", "application/json",
+                    json.dumps(out).encode())
+        if path.startswith("/traces"):
+            # recent per-batch span records; ?slowest[=N] sorts by batch_us
+            # (request-id attribution for slow verdicts — SURVEY.md §5)
+            from urllib.parse import parse_qs, urlsplit
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            if "slowest" in q:
+                try:
+                    n = int(q["slowest"][0] or 20)
+                except ValueError:
+                    n = 20
+                body = self.batcher.traces.slowest(n)
+            else:
+                body = self.batcher.traces.snapshot(50)
+            return ("200 OK", "application/json",
+                    json.dumps({"traces": body}).encode())
+        if path.startswith("/debug/trace"):
+            # cycle flight recorder (docs/OBSERVABILITY.md "Cycle
+            # flight recorder"): Chrome trace-event / Perfetto-loadable
+            # JSON of the last N cycles' cross-thread timeline —
+            # tid = registered thread root, request flows stitched
+            # submit→verdict.  Save the body and load it straight into
+            # https://ui.perfetto.dev.  ?cycles=N (default 64).
+            from urllib.parse import parse_qs, urlsplit
+            from ingress_plus_tpu_torch.utils.trace import flight
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            try:
+                n = int((q.get("cycles") or ["64"])[0])
+            except ValueError:
+                n = 64
+            if n <= 0:
+                n = 64
+            if not flight.enabled:
+                return ("200 OK", "application/json", json.dumps(
+                    {"enabled": False, "traceEvents": []}).encode())
+            body = await loop.run_in_executor(
+                None, lambda: json.dumps(flight.chrome_trace(cycles=n)))
+            return "200 OK", "application/json", body.encode()
+        if path.startswith("/debug/kernels"):
+            # each scan kernel's launches in this process by (B, L,
+            # carried) with the work their lengths asked for: what a
+            # card run re-times at the serve path's own shapes
+            return ("200 OK", "application/json", json.dumps({
+                k.name: {"launches": k.launches,
+                         "shapes": k.shape_snapshot()}
+                for k in (PAIR_SCAN, STEP_SCAN)}).encode())
+        if path.startswith("/debug/slow"):
+            # the K slowest requests since startup: full span breakdown,
+            # truncated input sizes, rules hit (exemplar capture)
+            from urllib.parse import parse_qs, urlsplit
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            try:
+                n = int((q.get("n") or ["32"])[0])
+            except ValueError:
+                n = 32
+            if n <= 0:     # negative would slice from the wrong end
+                n = 32
+            return ("200 OK", "application/json", json.dumps(
+                {"slowest": self.batcher.slow.snapshot(n)}).encode())
+        if path.startswith("/wallarm-status"):
+            # node counters JSON — the reference module's `/wallarm-status`
+            # endpoint that collectd scrapes (SURVEY.md §3.5); the post
+            # plane is not ported, so it answers as the JAX server does
+            # without one
+            return ("200 OK", "application/json",
+                    json.dumps({"postanalytics": "disabled"}).encode())
+        if path.startswith("/tenants"):
+            # tenant-isolation view (docs/ROBUSTNESS.md "Tenant
+            # isolation"): per-tenant admitted/shed/degraded/queue-
+            # depth, guard/quarantine state, and the top offenders via
+            # the bounded SpaceSaving sketch.  ?n= caps the per-tenant
+            # rows (busiest first); full cardinality never leaves the
+            # process — the same policy as /rules/stats.
+            from urllib.parse import parse_qs, urlsplit
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            try:
+                n = int((q.get("n") or ["64"])[0])
+            except ValueError:
+                n = 64
+            tg = self.batcher.tenant_guard
+            depths = self.batcher._q.depths()
+            body = {
+                "enabled": tg is not None,
+                "queue": {
+                    "depth": self.batcher.queue_depth(),
+                    "cap": self.batcher.queue_cap,
+                    "tenant_cap": self.batcher._q.tenant_cap,
+                    "active_tenants": len(depths),
+                    "depths": {str(t): d
+                               for t, d in sorted(depths.items())},
+                    "weights": {str(t): w for t, w in
+                                sorted(self.batcher._q.weights.items())},
+                },
+                "guard": tg.snapshot(top=max(n, 1)) if tg is not None
+                else None,
+                "top_offenders": (tg.top_offenders.items(10)
+                                  if tg is not None else []),
+                "sketch": (tg.top_offenders.summary()
+                           if tg is not None else None),
+            }
+            return ("200 OK", "application/json",
+                    json.dumps(body).encode())
+        if path.startswith("/rules/stats"):
+            # per-rule runtime accounting — full detail is
+            # JSON-only here by the cardinality policy (Prometheus gets
+            # the bounded family series).  ?n= caps the rule list
+            # (candidates-descending); default is the whole pack.
+            from urllib.parse import parse_qs, urlsplit
+            from ingress_plus_tpu_torch.models.rule_stats import (
+                device_efficiency)
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            try:
+                n = int((q.get("n") or ["0"])[0])
+            except ValueError:
+                n = 0
+            rs = pipeline.rule_stats
+            cache = getattr(pipeline, "confirm_cache", None)
+            body = {
+                "version": rs.version,
+                "requests": rs.requests,
+                "device": pipeline.engine.device_info(),
+                "efficiency": device_efficiency(pipeline.stats),
+                "verdict_cache": (cache.snapshot()
+                                  if cache is not None else None),
+                "rules": rs.rules_json(limit=max(n, 0)),
+            }
+            return ("200 OK", "application/json",
+                    json.dumps(body).encode())
+        if path.startswith("/rules/health"):
+            # runtime dead-rule + false-candidate view: the runtime
+            # twin of the static rulecheck audit (docs/ANALYSIS.md) —
+            # a rule whose confirm regex fails at runtime surfaces here
+            # after its FIRST candidate, not at the next audit
+            return ("200 OK", "application/json",
+                    json.dumps(pipeline.rule_stats.health()).encode())
+        if path.startswith("/rules/drift"):
+            # hit-rate deltas across the most recent hot reload: the
+            # outgoing version's counters freeze at swap; rules that
+            # went quiet after the reload are flagged once ?min= (or
+            # the default floor) of new traffic has accumulated
+            from urllib.parse import parse_qs, urlsplit
+            from ingress_plus_tpu_torch.models.rule_stats import drift_report
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            try:
+                mn = int((q.get("min") or ["100"])[0])
+            except ValueError:
+                mn = 100
+            return ("200 OK", "application/json", json.dumps(
+                drift_report(pipeline.frozen_rule_stats,
+                             pipeline.rule_stats,
+                             min_new_requests=max(mn, 1))).encode())
+        if path == "/configuration/tenants" and method == "POST":
+            # EP tenant table push: {"<tenant>": ["tag", ...], ...}.
+            # Validation is the shared control/sync.py validator — a
+            # payload that would silently truncate the mask table
+            # (> MAX_TENANTS entries) or silently collapse rows
+            # (non-canonical ids like "01") is a structured 4xx, never
+            # a partial install.
+            from ingress_plus_tpu_torch.control.sync import validate_tenant_tags
+            try:
+                raw = json.loads(payload or b"{}")
+                tags = validate_tenant_tags(raw)
+            except (ValueError, TypeError, AttributeError,
+                    json.JSONDecodeError) as e:
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": str(e)}).encode())
+            await loop.run_in_executor(
+                None, self.batcher.set_tenant_tags, tags)
+            tm = self.batcher.pipeline.tenant_rule_mask
+            return "200 OK", "application/json", json.dumps(
+                {"tenants": 1 if tm is None else int(tm.shape[0])}).encode()
+        if path.startswith("/configuration/ruleset") and method == "POST":
+            # ruleset delivery (sync-node† analog).  No guarded rollout
+            # is ported, so the only semantics is the one-shot swap of
+            # ?mode=force (the default), and an explicit ?mode=staged is
+            # a 409 — the JAX server without a rollout controller.
+            from urllib.parse import parse_qs, urlsplit
+            from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
+
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            swap_mode = (q.get("mode") or ["force"])[0]
+            if swap_mode not in ("staged", "force"):
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": "mode must be staged|force"}
+                                   ).encode())
+            try:
+                spec = json.loads(payload or b"{}")
+                if not isinstance(spec, dict):
+                    raise ValueError("payload must be a JSON object")
+                art = str(spec["path"])
+                pl = spec.get("paranoia_level")
+                pl = int(pl) if pl is not None else None
+            except (KeyError, ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": str(e)}).encode())
+            if swap_mode == "staged":
+                # an EXPLICIT staged request must never silently get the
+                # ungated one-shot swap it asked to avoid
+                return ("409 Conflict", "application/json",
+                        json.dumps({"error": "staged rollout unavailable:"
+                                    " no rollout controller attached "
+                                    "(use ?mode=force)"}).encode())
+
+            # force / break-glass: the one-shot swap.  A corrupt or
+            # unloadable checkpoint is a structured 4xx rejection (stage
+            # "load"), not a generic executor 500
+            def _load_and_swap():
+                try:
+                    cr = CompiledRuleset.load(art)
+                except Exception as e:
+                    raise _LoadRejected(
+                        {"stage": "load", "reason": "load",
+                         "artifact": art,
+                         "detail": {"error": "%s: %s"
+                                    % (type(e).__name__, e)}})
+                self.batcher.swap_ruleset(cr, paranoia_level=pl)
+                return cr
+
+            try:
+                cr = await loop.run_in_executor(None, _load_and_swap)
+            except _LoadRejected as e:
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"rejected": True,
+                                    **e.report}).encode())
+            except (OSError, ValueError, TypeError) as e:
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": str(e),
+                                    "stage": "swap"}).encode())
+            return "200 OK", "application/json", json.dumps(
+                {"ruleset": cr.version, "rules": cr.n_rules,
+                 "mode": "force"}).encode()
+        if path == "/configuration/acl" and method == "POST":
+            # wallarm-acl push (no-reload lane): {"acls": {name: {allow:
+            # [cidr], deny: [...], greylist: [...]}}, "tenant_acl":
+            # {"<tenant>": name}, "default": name}.  Validated fully
+            # before the atomic swap — a bad spec changes nothing.
+            from ingress_plus_tpu_torch.models.acl import AclError
+
+            def _swap_acls():
+                spec = json.loads(payload or b"{}")
+                if not isinstance(spec, dict):
+                    raise ValueError("payload must be a JSON object")
+                acl_specs = spec.get("acls", {})
+                names = set(acl_specs)
+                binding = {int(k): str(v)
+                           for k, v in spec.get("tenant_acl", {}).items()}
+                default = str(spec.get("default", ""))
+                missing = sorted((set(binding.values()) - names)
+                                 | ({default} - names if default else set()))
+                if missing:   # validate BEFORE any mutation: atomic swap
+                    raise ValueError("unknown acl(s) bound: %s" % missing)
+                # under the batcher's swap lock: finalize reads the
+                # (acl_store, tenant_acl, default_acl) TRIPLE per batch
+                # — an executor-thread swap between those reads handed
+                # one request a new store with the old bindings
+                with self.batcher._swap_lock:
+                    loaded = pipeline.acl_store.swap(acl_specs)
+                    pipeline.tenant_acl = binding
+                    pipeline.default_acl = default
+                return loaded
+
+            try:
+                names = await loop.run_in_executor(None, _swap_acls)
+            except (AclError, ValueError, TypeError, KeyError,
+                    json.JSONDecodeError) as e:
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": str(e)}).encode())
+            return "200 OK", "application/json", json.dumps(
+                {"acls": names,
+                 "tenant_bindings": len(pipeline.tenant_acl)}).encode()
+        if path.startswith("/configuration"):
+            # dbg CLI inspection (cmd/dbg† analog)
+            tm = pipeline.tenant_rule_mask
+            return "200 OK", "application/json", json.dumps({
+                "ruleset": pipeline.ruleset.version,
+                "rules": pipeline.ruleset.n_rules,
+                "mode": pipeline.mode,
+                "scan_impl": pipeline.engine.scan_impl,
+                "anomaly_threshold": pipeline.anomaly_threshold,
+                "tenants": 1 if tm is None else int(tm.shape[0]),
+                "acls": pipeline.acl_store.names(),
+                "batch": {"max": self.batcher.max_batch,
+                          "window_us": int(self.batcher.max_delay_s * 1e6)},
+            }).encode()
+        return "404 Not Found", "text/plain", b""
+
+    # ------------------------------------------------------- lifecycle
+
+    async def start(self) -> None:
+        Path(self.socket_path).unlink(missing_ok=True)
+        self._servers.append(await asyncio.start_unix_server(
+            self._handle_conn, path=self.socket_path))
+        if self.http_port:
+            self._servers.append(await asyncio.start_server(
+                self._handle_http, host="127.0.0.1", port=self.http_port))
+
+    async def run_forever(self) -> None:
+        await self.start()
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                loop.add_signal_handler(sig, stop.set)
+            except NotImplementedError:
+                pass
+        print("serving on %s (http %s), ruleset %s"
+              % (self.socket_path, self.http_port or "off",
+                 self.batcher.pipeline.ruleset.version), file=sys.stderr)
+        await stop.wait()
+        for s in self._servers:
+            s.close()
+        self.batcher.close()
+
+
+class _LoadRejected(Exception):
+    """An unloadable ruleset checkpoint on ``/configuration/ruleset``:
+    nothing changed; ``report`` is the structured 4xx body (stage,
+    reason, artifact, detail)."""
+
+    def __init__(self, report: dict):
+        super().__init__(report["reason"])
+        self.report = report
+
+
+def build_default_batcher(mode: str = "block",
+                          max_batch: int = 256,
+                          max_delay_s: float = 0.0005,
+                          warmup: bool = True,
+                          scan_impl: str = "auto",
+                          queue_cap: int = 8192,
+                          hard_deadline_s: float = 0.25,
+                          hang_budget_s: float = 30.0,
+                          breaker_failures: int = 3,
+                          breaker_cooldown_s: float = 5.0,
+                          n_lanes: int = 1,
+                          confirm_workers: int = 1,
+                          confirm_cache_entries: int = 0,
+                          tenant_queue_cap: int = 0,
+                          tenant_weights: Optional[str] = None,
+                          tenant_guard: str = "prefilter_only",
+                          platform: str = "cuda") -> Batcher:
+    """The serving batcher on the committed bundled pack.
+
+    ``platform`` picks the torch device (``cuda``: the card, where the
+    engine builds and loads both scan kernels before anything else;
+    ``cpu``: the plain scan).  ``scan_impl`` "auto" is the device's
+    default: ``pallas3`` (the pair kernel on raw bytes) on ``cuda``,
+    ``pair`` on ``cpu`` — a constant, not a startup timing, until a
+    benchmark shows which kernel wins end to end.  Warmup dispatches run
+    on each lane's own worker thread, with its card and stream
+    current."""
+    import os
+
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.models.tenant_guard import (
+        parse_tenant_weights,
+    )
+    from ingress_plus_tpu_torch.utils.device import resolve_device
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    device = resolve_device(platform)
+    cr = load_pack()
+    if n_lanes == 0:   # --lanes auto: one lane per local device
+        n_lanes = (max(1, torch.cuda.device_count())
+                   if device.type == "cuda" else 1)
+        print("lane serving: auto -> %d per-device lanes" % n_lanes,
+              file=sys.stderr)
+    if device.type == "cuda" and n_lanes > torch.cuda.device_count():
+        # lanes that share a card only contend for it (two lanes on one
+        # H100 served fewer requests than one): one lane per card at most
+        raise ValueError("--lanes %d: this host has %d CUDA card(s), and "
+                         "lanes do not share a card"
+                         % (n_lanes, torch.cuda.device_count()))
+    if confirm_workers == 0:   # --confirm-workers auto: one per host core
+        confirm_workers = max(1, min(8, os.cpu_count() or 1))
+        print("confirm plane: auto -> %d confirm workers"
+              % confirm_workers, file=sys.stderr)
+    if scan_impl != "auto":
+        # validated against the device before any build (pair = cpu)
+        DetectionEngine.check_impl(scan_impl, device)
+    t0 = time.time()
+    pipeline = DetectionPipeline(
+        cr, mode=mode, device=device,
+        scan_impl=None if scan_impl == "auto" else scan_impl,
+        confirm_workers=confirm_workers,
+        confirm_cache_entries=confirm_cache_entries)
+    if device.type == "cuda":
+        print("kernels: built and loaded on %s (%s) in %.1fs"
+              % (device, torch.cuda.get_device_name(device),
+                 time.time() - t0), file=sys.stderr)
+    print("scan impl: %s%s" % (pipeline.engine.scan_impl,
+                                " (auto)" if scan_impl == "auto" else ""),
+          file=sys.stderr)
+    batcher = Batcher(pipeline, max_batch=max_batch, max_delay_s=max_delay_s,
+                      hard_deadline_s=hard_deadline_s, queue_cap=queue_cap,
+                      hang_budget_s=hang_budget_s,
+                      breaker_failures=breaker_failures,
+                      breaker_cooldown_s=breaker_cooldown_s,
+                      n_lanes=n_lanes,
+                      tenant_queue_cap=tenant_queue_cap,
+                      tenant_weights=parse_tenant_weights(tenant_weights),
+                      tenant_guard=tenant_guard)
+    if warmup:
+        t0 = time.time()
+        if n_lanes <= 1:
+            warmup_pipeline(pipeline, max_batch, lane=batcher.lanes.primary,
+                            stream_engine=batcher.stream_engine)
+            # the warmup corpus is synthetic (20% attacks): drop it from
+            # the detection-plane telemetry so /rules/* and the
+            # efficiency gauges describe real traffic from request one
+            pipeline.reset_detection_observations()
+        else:
+            # every lane warms on its own worker, concurrently; resets
+            # the detection telemetry itself
+            batcher.warm_lanes()
+        print("warmup: %d lane(s) warmed in %.1fs"
+              % (n_lanes, time.time() - t0), file=sys.stderr)
+    return batcher
+
+
+def warmup_pipeline(pipeline, max_batch: int, lane=None,
+                    stream_engine=None) -> None:
+    """Dispatch the (B, L, Q) shapes live traffic will hit once before
+    serving, so the first real requests pay no first loads (the analog
+    of nginx testing its config before swapping workers in).  With
+    ``lane``, every dispatch runs on that lane's worker thread (its card
+    and stream current, as live dispatches are); with ``stream_engine``,
+    one short chunked stream also runs through it there."""
+    import dataclasses
+
+    from ingress_plus_tpu_torch.models.pipeline import warm_sizes
+    from ingress_plus_tpu_torch.utils.corpus import generate_corpus
+
+    reqs = [lr.request for lr in generate_corpus(n=max_batch, seed=1)]
+    # one size per Q-pad tier — the ONE shared ladder
+    # (models/pipeline.warm_sizes)
+    sizes = warm_sizes(max_batch)
+
+    def _warm():
+        for size in sizes:
+            pipeline.detect(reqs[:size])
+        # head-sliced twin shapes (docs/SCAN_KERNEL.md): the synthetic
+        # corpus carries bodies, so every batch above used the
+        # FULL-width tables — bodyless cycles dispatch against the
+        # sliced head words.  Only word-tiered packs have the twin.
+        if pipeline.engine.head_slicing_active():
+            bodyless = [dataclasses.replace(r, body=b"") for r in reqs]
+            for size in sizes:
+                pipeline.detect(bodyless[:size])
+        if stream_engine is not None:
+            meta = dataclasses.replace(reqs[0], body=b"",
+                                       request_id="warmup-stream")
+            st = stream_engine.begin(meta)
+            st.base_hits = pipeline.prefilter([meta])[0]
+            stream_engine.scan(st.feed(b"a=" + b"x" * 5000))
+            stream_engine.scan(st.flush())
+            stream_engine.finish(st)
+
+    if lane is not None:
+        lane.call(_warm, None)
+    else:
+        _warm()
+
+
+def _parse_auto_count(value: str, flag: str) -> int:
+    """Shared N|'auto' flag parser (--lanes, --confirm-workers):
+    'auto' → the internal 0 sentinel (resolved per flag: one lane per
+    local device / one confirm worker per host core); integers must be
+    >= 1 — an explicit 0 must not silently collide with the sentinel
+    and fan out."""
+    if value == "auto":
+        return 0
+    n = int(value)
+    if n < 1:
+        raise SystemExit("%s must be >= 1 or 'auto', got %r"
+                         % (flag, value))
+    return n
+
+
+def _parse_confirm_workers(value: str) -> int:
+    return _parse_auto_count(value, "--confirm-workers")
+
+
+def _parse_lanes(value: str) -> int:
+    return _parse_auto_count(value, "--lanes")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="ingress_plus_tpu_torch.serve")
+    ap.add_argument("--socket", default="/tmp/ingress_plus_tpu.sock")
+    ap.add_argument("--http-port", type=int, default=9901)
+    ap.add_argument("--mode", default="block",
+                    choices=["off", "monitoring", "safe_blocking", "block"])
+    ap.add_argument("--max-batch", type=int, default=256)
+    ap.add_argument("--max-delay-us", type=int, default=500)
+    ap.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                    help="torch device to serve on: cuda (the default; "
+                         "startup fails without a card) or cpu (the "
+                         "plain scan, for tests and development)")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip the warm dispatches (the kernels are still "
+                         "built and loaded at startup on cuda)")
+    ap.add_argument("--lanes", default="1",
+                    help="data-parallel per-device serve lanes behind "
+                         "one admission queue (docs/MESH_SERVING.md): "
+                         "an integer lane count, or 'auto' = one lane "
+                         "per CUDA card (on cuda at most one lane per "
+                         "card).  Each lane gets its own watchdog, "
+                         "circuit breaker and CUDA stream; a sick card "
+                         "degrades capacity, not the service")
+    ap.add_argument("--confirm-workers", default="1",
+                    help="parallel confirm plane (docs/CONFIRM_PLANE.md)"
+                         ": worker threads the CPU confirm stage shards "
+                         "each cycle's requests across — an integer, or "
+                         "'auto' = one per host core (capped at 8).  1 "
+                         "(default) runs the classic serial confirm "
+                         "inline.  A wedged worker fails only its "
+                         "request share open; with the mesh loop, "
+                         "confirm overlaps the next cycle's scan")
+    ap.add_argument("--confirm-cache", type=int, default=0,
+                    help="cross-cycle verdict cache entries "
+                         "(docs/RETUNE.md): bounded confirm-outcome "
+                         "cache keyed (generation, rule, stream "
+                         "digest) that survives across batches.  0 "
+                         "(default) keeps the per-cycle flood memo only")
+    ap.add_argument("--scan-impl", default="auto",
+                    choices=["auto", "pair", "pallas", "pallas2",
+                             "pallas3"],
+                    help="scan implementation: on cuda auto = pallas3 "
+                         "(the pair kernel on raw bytes); pallas = the "
+                         "per-byte step kernel, pallas2 = the pair kernel "
+                         "on class ids; on cpu the only implementation "
+                         "is pair")
+    ap.add_argument("--trace-dir", default=None,
+                    help="collect a torch.profiler trace (host + CUDA) "
+                         "of the serve loop and write it as a Chrome "
+                         "trace into this dir at shutdown")
+    ap.add_argument("--sidecar-status", default=None,
+                    help="host:port of the native sidecar's --status-port"
+                         " listener; /traces/request then includes the "
+                         "sidecar hop's per-upstream EWMA timing")
+    ap.add_argument("--trace-ring-kb", type=int, default=256,
+                    help="cycle flight recorder: per-thread event-ring "
+                         "byte cap (docs/OBSERVABILITY.md 'Cycle flight "
+                         "recorder'); the recorder is always-on and "
+                         "allocation-light — this bounds its memory")
+    ap.add_argument("--no-flight-recorder", action="store_true",
+                    help="disable the cycle flight recorder entirely: "
+                         "/debug/trace empties, /healthz "
+                         "pipeline_overlap goes null, record() becomes "
+                         "one attribute read")
+    ap.add_argument("--debug-locks", action="store_true",
+                    help="instrument every serve-plane lock "
+                         "(docs/ANALYSIS.md 'Concurrency analysis'): "
+                         "acquisition-order assertions + contention "
+                         "counters at /metrics; debugging aid, not for "
+                         "production hot paths")
+    # fail-safe serve plane (docs/ROBUSTNESS.md)
+    ap.add_argument("--queue-cap", type=int, default=8192,
+                    help="bounded admission: max queued items; beyond "
+                         "it requests shed fail-open at enqueue")
+    ap.add_argument("--hard-deadline-ms", type=int, default=250,
+                    help="serve deadline: requests whose queue math "
+                         "predicts a miss are shed fail-open at "
+                         "enqueue; also derives the brownout ladder "
+                         "thresholds")
+    ap.add_argument("--hang-budget-ms", type=int, default=30000,
+                    help="dispatch watchdog: a device dispatch "
+                         "exceeding this fails its batch open and "
+                         "trips the circuit breaker")
+    ap.add_argument("--breaker-failures", type=int, default=3,
+                    help="consecutive dispatch errors that open the "
+                         "breaker (hangs open it immediately)")
+    ap.add_argument("--breaker-cooldown-s", type=float, default=5.0,
+                    help="seconds the breaker stays open before a "
+                         "half-open canary batch probes the device")
+    # tenant isolation (docs/ROBUSTNESS.md "Tenant isolation")
+    ap.add_argument("--tenant-queue-cap", type=int, default=0,
+                    help="per-tenant admission sub-queue cap (deficit-"
+                         "round-robin fair queue); 0 = the global "
+                         "--queue-cap (single-tenant behavior "
+                         "unchanged).  Beyond it that tenant sheds "
+                         "fail-open (reason=tenant_queue_full) while "
+                         "other tenants keep admitting")
+    ap.add_argument("--tenant-weights", default=None,
+                    help="DRR weights per tenant, e.g. '1:4,7:0.5' — a "
+                         "weight-2 tenant drains twice the bytes per "
+                         "fair-queue round; unlisted tenants weigh 1")
+    ap.add_argument("--tenant-guard", default="prefilter_only",
+                    choices=["prefilter_only", "fail_open", "off"],
+                    help="per-tenant flood guard policy: a tenant "
+                         "breaching its admission budget is served "
+                         "prefilter-only (degraded, never blocks) or "
+                         "shed fail-open; 'off' disables quarantining "
+                         "(fair admission still applies)")
+    ap.add_argument("--faults", default=None,
+                    help="deterministic fault plan, e.g. "
+                         "'dispatch_hang:after=100,times=1,delay_s=5'; "
+                         "also honored from $IPT_FAULTS "
+                         "(utils/faults.py, docs/ROBUSTNESS.md)")
+    ap.add_argument("--faults-seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    from ingress_plus_tpu_torch.utils import faults as faults_mod
+    if args.faults:
+        faults_mod.install(
+            faults_mod.FaultPlan.from_spec(args.faults,
+                                           seed=args.faults_seed))
+    else:
+        faults_mod.install_from_env()
+
+    if args.debug_locks:
+        # BEFORE the batcher builds: named_lock() returns instrumented
+        # locks only for objects constructed after this point
+        from ingress_plus_tpu_torch.utils.trace import enable_debug_locks
+
+        enable_debug_locks(True)
+
+    # cycle flight recorder knobs (docs/OBSERVABILITY.md): configure
+    # BEFORE the batcher's threads start so every ring carries the
+    # chosen cap and the escape hatch truly zeroes the surface
+    from ingress_plus_tpu_torch.utils.trace import flight
+
+    flight.configure(ring_kb=args.trace_ring_kb,
+                     enabled=not args.no_flight_recorder)
+
+    try:
+        batcher = build_default_batcher(
+            mode=args.mode, max_batch=args.max_batch,
+            max_delay_s=args.max_delay_us / 1e6, warmup=not args.no_warmup,
+            scan_impl=args.scan_impl,
+            queue_cap=args.queue_cap,
+            hard_deadline_s=args.hard_deadline_ms / 1e3,
+            hang_budget_s=args.hang_budget_ms / 1e3,
+            breaker_failures=args.breaker_failures,
+            breaker_cooldown_s=args.breaker_cooldown_s,
+            n_lanes=_parse_lanes(args.lanes),
+            confirm_workers=_parse_confirm_workers(args.confirm_workers),
+            confirm_cache_entries=max(0, args.confirm_cache),
+            tenant_queue_cap=args.tenant_queue_cap,
+            tenant_weights=args.tenant_weights,
+            tenant_guard=args.tenant_guard,
+            platform=args.platform)
+    except (RuntimeError, ValueError) as e:
+        # no card, an impl the device cannot run, a kernel that does
+        # not build or load: refuse to start, never fall back
+        raise SystemExit("ingress_plus_tpu_torch.serve: startup failed: %s"
+                         % e)
+
+    loop = ServeLoop(batcher, args.socket, args.http_port,
+                     sidecar_status=args.sidecar_status)
+    from ingress_plus_tpu_torch.utils.trace import profiled
+    with profiled(args.trace_dir):
+        asyncio.run(loop.run_forever())
+
+
+if __name__ == "__main__":
+    main()

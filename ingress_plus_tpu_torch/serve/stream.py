@@ -352,7 +352,7 @@ class StreamEngine:
         uint32 (match, state) back."""
         dev = scanner.tables.device
         m, s = scanner(torch.from_numpy(tokens).to(dev),
-                       torch.from_numpy(lengths).to(dev),
+                       torch.from_numpy(lengths),
                        from_numpy_u32(state, dev), from_numpy_u32(match, dev))
         return to_numpy_u32(m), to_numpy_u32(s)
 

@@ -128,3 +128,99 @@ def test_entry_point_without_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+_SERVE_CHILD = r"""
+import json, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None   # and of the JAX package
+import ingress_plus_tpu_torch.serve.server
+import ingress_plus_tpu_torch.serve.websocket
+from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+from ingress_plus_tpu_torch.serve.batcher import Batcher
+from ingress_plus_tpu_torch.serve.normalize import Request
+from ingress_plus_tpu_torch.weights import load_pack
+b = Batcher(DetectionPipeline(load_pack(), device="cpu", confirm_workers=2),
+            max_batch=8, hard_deadline_s=30.0)
+try:
+    v = b.submit(Request(uri="/q?id=1'+UNION+SELECT+password+FROM+users--",
+                         request_id="r1")).result(timeout=120)
+finally:
+    b.close()
+print(json.dumps({
+    "verdict": [v.request_id, v.attack, v.blocked, v.fail_open],
+    "modules": sorted(m for m in sys.modules
+                      if (m == "ingress_plus_tpu"
+                          or m.startswith("ingress_plus_tpu.")
+                          or m.split(".")[0] == "jax")
+                      and sys.modules[m] is not None)}))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_serve_plane_imports_and_batches_with_jax_absent():
+    proc = subprocess.run([sys.executable, "-c", _SERVE_CHILD],
+                          cwd=str(REPO), env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["modules"] == []
+    assert out["verdict"] == ["r1", True, True, False]
+
+
+_SERVER = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None
+from ingress_plus_tpu_torch.serve.server import main
+main(sys.argv[1:])
+"""
+
+
+def test_serve_subprocess_answers_a_frame_with_jax_absent(tmp_path):
+    import socket
+    import time
+
+    from ingress_plus_tpu_torch.serve.normalize import Request
+    from ingress_plus_tpu_torch.serve.protocol import (
+        RESP_MAGIC,
+        FrameReader,
+        decode_response,
+        encode_request,
+    )
+
+    sock = str(tmp_path / "iso.sock")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SERVER, "--socket", sock, "--http-port", "0",
+         "--platform", "cpu", "--no-warmup", "--hard-deadline-ms", "5000"],
+        cwd=str(REPO), env=_env(), stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 120
+        while not Path(sock).exists():
+            assert proc.poll() is None, proc.stderr.read()[-2000:]
+            assert time.time() < deadline, "socket never appeared"
+            time.sleep(0.1)
+        s = socket.socket(socket.AF_UNIX)
+        s.settimeout(60)
+        s.connect(sock)
+        s.sendall(encode_request(Request(
+            uri="/q?id=1'+UNION+SELECT+password+FROM+users--"), 42))
+        reader, got = FrameReader(RESP_MAGIC), []
+        while not got:
+            data = s.recv(1 << 16)
+            assert data, "server closed the connection"
+            got = reader.feed(data)
+        s.close()
+        r = decode_response(got[0])
+        assert (r["req_id"], r["attack"], r["blocked"], r["fail_open"]) == \
+            (42, True, True, False)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=20)
