@@ -80,6 +80,35 @@ Phases (any failure ends the run with a non-zero exit code):
    ``StepScanner``), bit-identical to the plain version, timed; the
    shape's time, the plain version's and the bound (from the work the
    server counted) over all its launches.
+9. The compiler and the guarded rollout on the card.  The port's compiler
+   builds, on this host: the bundled rules (held array for array against
+   the committed pack, compile seconds logged), ``base`` (the port's
+   ``rules/crs`` tree, as ``--rules-dir`` serves it), ``grow`` (base plus
+   an operator's rule file of four @rx rules: another W and class
+   count), ``lossy`` (base without ``942-sqli.conf``), ``overblock`` (base
+   plus a rule that blocks benign fixtures) and ``tiny`` (the fault
+   matrix's pack, W < 32).  Both kernels on the grow and tiny tables at
+   the main path's shapes (phase 3's launches, phase 6's carried waves):
+   bit-identical to ``scan_pairs`` / ``scan_bytes``.  Then the server
+   with ``--rules-dir`` (base) and ``--lkg-dir``, its defaults otherwise:
+   a wave of phase 3's requests plus six operator-rule requests; grow
+   staged over ``/configuration/ruleset`` (small steps and minimums) —
+   its admission report must equal the CPU pipeline's for the same pair
+   of packs — and waves (the rerouted body left out) until ``/rollout``
+   reads live, every wire verdict equal to the CPU verdict of base or of
+   grow; a wave after live equal to grow's; overblock and lossy rejected
+   at replay with serving unchanged; base staged and aborted mid-canary
+   (rolled back, grow serving); base staged again and the server
+   SIGKILLed mid-canary; the restart with the same ``--lkg-dir`` serves
+   grow, every wire verdict grow's; every phase 8 health counter 0 on
+   both servers.  Prints the admission stage seconds, admit-to-live, the
+   waves' req/s and p50/p99, and re-times the first server's launches
+   (both generations' serving cycles and the rollout's admission and
+   shadow work, ``/debug/kernels?scope=rollout``) on grow's tables.
+10. The fault matrix: ``run_fault_matrix()`` on a batcher on the card,
+    every ported scenario ``ok`` with the card's invariants (breaker-open
+    batches fail open, none blocks, nothing moves to the host); one line
+    per scenario.
 7. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
@@ -159,6 +188,31 @@ SERVE_ZERO = ("ipt_breaker_trips_total", "ipt_cpu_fallback_batches_total",
               "ipt_engine_recompiles_total")
 ATTACKS = (b"1' UNION SELECT password FROM users--", b"<script>alert(1)</script>",
            b";cat /etc/passwd", b"../../etc/shadow", b"${jndi:ldap://x/a}")
+#: phase 9: the staged rollout's knobs (per push: the ramp, the canary
+#: and shadow minimums; the server's defaults otherwise), and the wire
+#: traffic's concurrency there (half phase 8's in flight: a canary cycle
+#: dispatches twice, once per generation, under the same 250 ms deadline)
+ROLLOUT_KNOBS = {"steps": [0.1, 0.5, 1.0], "step_min_requests": 200,
+                 "shadow_min_requests": 32, "shadow_sample": 0.25}
+ROLLOUT_WINDOW = 4
+#: the operator's rule file of the `grow` pack: four @rx rules on strings
+#: the golden corpus and the benign fixtures never carry (a clean replay)
+OPERATOR_RULES = r"""
+SecRule REQUEST_URI|ARGS|REQUEST_BODY "@rx (?i)wp-sync-backdoor\.php" \
+    "id:960100,phase:2,block,t:urlDecodeUni,severity:CRITICAL,tag:'attack-rce'"
+SecRule ARGS|REQUEST_BODY "@rx (?i)x-ipt-canary~probe=[0-9a-f]{8}" \
+    "id:960110,phase:2,block,t:urlDecodeUni,severity:CRITICAL,tag:'attack-generic'"
+SecRule REQUEST_HEADERS:User-Agent "@rx (?i)zgrab-operator/\d+" \
+    "id:960120,phase:1,block,severity:CRITICAL,tag:'attack-scanner'"
+SecRule ARGS "@rx (?i)\{\{\s*ipt_ssti_marker\s*\}\}" \
+    "id:960130,phase:2,block,t:urlDecodeUni,severity:CRITICAL,tag:'attack-generic'"
+"""
+#: the `overblock` pack's extra rule: it blocks the GraphQL benign
+#: fixtures, which the incumbent passes
+OVERBLOCK_RULE = r"""
+SecRule REQUEST_URI "@beginsWith /graphql" \
+    "id:960200,phase:1,block,severity:CRITICAL,tag:'attack-generic'"
+"""
 
 
 def log(*a) -> None:
@@ -935,10 +989,10 @@ def phase_pallas_pipeline(cr, dev: torch.device, requests, want) -> dict:
     return res
 
 
-def phase_stream(cr, dev: torch.device) -> dict:
+def phase_stream(cr, dev: torch.device) -> tuple:
     """Seven concurrent 1 MiB streams through ``StreamEngine`` on the card
     and on the CPU (BASELINE config #5), then every wave again on its own
-    inputs."""
+    inputs.  Returns the result and the waves' inputs."""
     from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
     from ingress_plus_tpu_torch.ops.scan import scan_bytes
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
@@ -1032,7 +1086,7 @@ def phase_stream(cr, dev: torch.device) -> dict:
                   st.wave_rows, st.scanned_bytes, launches,
                   res["mb_per_s_confirm_included"],
                   json.dumps(res["split_s"]), res["cpu_mb_per_s"]))
-    return res
+    return res, eng.recorded
 
 
 def stream_cpu_reference() -> int:
@@ -1189,10 +1243,13 @@ class ServeChild:
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
-def request_wave(sock: str, requests, want) -> dict:
+def request_wave(sock: str, requests, wants,
+                 window: int = SERVE_WINDOW) -> dict:
     """``requests`` over the wire (SERVE_CONNECTIONS pipelined
-    connections, SERVE_WINDOW in flight on each); every response must
-    equal its ``want`` key and none may fail open."""
+    connections, ``window`` in flight on each); every response must
+    equal its key in one of ``wants`` (one key list per generation that
+    may serve it) and none may fail open.  Returns the wave's rate and
+    latency, and how many responses matched only each generation."""
     from ingress_plus_tpu_torch.serve.client import drive
     from ingress_plus_tpu_torch.serve.protocol import encode_request
 
@@ -1208,20 +1265,27 @@ def request_wave(sock: str, requests, want) -> dict:
     units = [(i + 1, [encode_request(requests[i], i + 1, mode=2)])
              for i in order]
     t0 = time.perf_counter()
-    out = drive(sock, units, SERVE_CONNECTIONS, SERVE_WINDOW, timeout=300)
+    out = drive(sock, units, SERVE_CONNECTIONS, window, timeout=300)
     wall = time.perf_counter() - t0
-    bad = [(r.request_id, out[i + 1][0], want[i])
-           for i, r in enumerate(requests)
-           if out[i + 1][0]["fail_open"]
-           or wire_key(r.request_id, out[i + 1][0]) != want[i]]
+    only = [0] * len(wants)
+    bad = []
+    for i, r in enumerate(requests):
+        resp = out[i + 1][0]
+        got = wire_key(r.request_id, resp)
+        hit = [k for k, w in enumerate(wants) if w[i] == got]
+        if resp["fail_open"] or not hit:
+            bad.append((r.request_id, resp, [w[i] for w in wants]))
+        elif len(hit) == 1:
+            only[hit[0]] += 1
     if bad:
         raise SystemExit("serve: %d of %d wire verdicts differ from the cpu "
                          "reference, first: %s"
                          % (len(bad), len(requests), bad[:1]))
     lat = np.array([out[i + 1][1] for i in range(len(requests))]) * 1e3
-    return {"wall_s": wall, "wire_req_per_s": len(requests) / wall,
+    return {"requests": len(requests), "wall_s": wall,
+            "wire_req_per_s": len(requests) / wall,
             "p50_ms": float(np.percentile(lat, 50)),
-            "p99_ms": float(np.percentile(lat, 99))}
+            "p99_ms": float(np.percentile(lat, 99)), "only": only}
 
 
 def check_serve_metrics(what: str, metrics: str) -> float:
@@ -1238,9 +1302,10 @@ def check_serve_metrics(what: str, metrics: str) -> float:
     return engine_us
 
 
-def kernel_shapes(srv) -> dict:
-    """The server's ``/debug/kernels``: {kernel: {launches, shapes}}."""
-    status, body = srv.get("/debug/kernels")
+def kernel_shapes(srv, scope: str = "serve") -> dict:
+    """The server's ``/debug/kernels`` of one launch scope: {kernel:
+    {launches, shapes}}."""
+    status, body = srv.get("/debug/kernels?scope=" + scope)
     if status != 200:
         raise SystemExit("serve: /debug/kernels answered %d" % status)
     return json.loads(body)
@@ -1404,7 +1469,8 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
                              "cuda and scan impl auto = pallas3" % path)
         shapes0 = kernel_shapes(srv)
         launches0 = kernel_launches(srv.metrics())
-        waves = [request_wave(srv.sock, requests, want) for _ in range(2)]
+        waves = [request_wave(srv.sock, requests, [want])
+                 for _ in range(2)]
         # the phase 6 bodies: the response leak as one response-scan
         # frame (rerouted to the stream lane), the others chunked
         sid = 100000
@@ -1447,7 +1513,7 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     shapes = shape_delta(shapes0, shapes1)
     workers = int(metric_values(metrics, "ipt_confirm_workers")[0][1])
     with ServeChild("--confirm-workers", "auto") as pooled:
-        auto_waves = [request_wave(pooled.sock, requests, want)
+        auto_waves = [request_wave(pooled.sock, requests, [want])
                       for _ in range(2)]
         auto_metrics = pooled.metrics()
     check_serve_metrics("--confirm-workers auto", auto_metrics)
@@ -1513,6 +1579,465 @@ def segment_rows(path: str, shapes) -> list:
                                   "one_segment_ms")}} for a in shapes]
 
 
+def operator_requests(Request):
+    """Requests only the operator's rules flag (and a benign twin each):
+    after the promote their wire verdicts must change."""
+    out = []
+    for i, (uri, ua) in enumerate((
+            ("/wp-content/plugins/wp-sync-backdoor.php?x=1", "curl/8.0"),
+            ("/api/echo?q=x-ipt-canary~probe=deadbeef", "curl/8.0"),
+            ("/index.html", "zgrab-operator/2"),
+            ("/render?name=%7B%7B+ipt_ssti_marker+%7D%7D", "curl/8.0"),
+            ("/wp-content/plugins/wp-sync.php?x=1", "curl/8.0"),
+            ("/api/echo?q=x-ipt-canary-probe", "curl/8.0"))):
+        out.append(Request(uri=uri, headers={"host": "shop.example.com",
+                                             "user-agent": ua},
+                           request_id="operator-%d" % i))
+    return out
+
+
+def compile_rollout_packs(root: str) -> tuple:
+    """The packs phase 9 stages, compiled by the port's compiler on this
+    host: the bundled rules (held array for array against the committed
+    pack), ``base`` (the port's ``rules/crs`` tree, as ``--rules-dir``
+    serves it), ``grow`` (base plus the operator's rule file), ``lossy``
+    (base without ``942-sqli.conf``), ``overblock`` (base plus a rule
+    that blocks benign fixtures) and ``tiny`` (the fault matrix's pack,
+    W < 32).  Each tree is a copy under ``root``; each pack is saved
+    there for the pushes."""
+    from ingress_plus_tpu_torch.compiler import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.seclang import load_seclang_dir
+    from ingress_plus_tpu_torch.compiler.sigpack import (
+        RULES_DIR,
+        load_bundled_rules,
+    )
+    from ingress_plus_tpu_torch.utils.faults import _matrix_ruleset
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    t0 = time.perf_counter()
+    rules = load_bundled_rules()
+    t1 = time.perf_counter()
+    bundled = compile_ruleset(rules)
+    t2 = time.perf_counter()
+    want = load_pack()
+    fields = ([(bundled.tables, want.tables, f) for f in (
+        "byte_table", "init_mask", "final_mask", "factor_word", "factor_bit",
+        "factor_rule_indptr", "factor_rule_ids", "rule_nfactors",
+        "factor_len")] + [(bundled, want, f) for f in (
+            "rule_sv_mask", "rule_class", "rule_score", "rule_action",
+            "rule_paranoia", "rule_ids")])
+    for a, b, f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise SystemExit("rollout: the port's compile of the bundled "
+                             "rules differs from the committed pack in %s"
+                             % f)
+    if ([m.confirm for m in bundled.rules] != [m.confirm for m in want.rules]
+            or bundled.version != want.version
+            or (bundled.tables.n_head_words, bundled.tables.n_prefix_shared)
+            != (want.tables.n_head_words, want.tables.n_prefix_shared)):
+        raise SystemExit("rollout: the bundled compile's descriptors differ "
+                         "from the committed pack")
+    out = {"bundled_parse_s": t1 - t0, "bundled_compile_s": t2 - t1,
+           "bundled_rules": bundled.n_rules}
+    trees = {"base": {}, "grow": {"add": OPERATOR_RULES},
+             "lossy": {"drop": "942-sqli.conf"},
+             "overblock": {"add": OVERBLOCK_RULE}}
+    packs = {}
+    for name, kw in trees.items():
+        shutil.copytree(RULES_DIR, os.path.join(root, name),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        crs = os.path.join(root, name, "crs")
+        if "drop" in kw:
+            os.unlink(os.path.join(crs, kw["drop"]))
+        if "add" in kw:
+            with open(os.path.join(crs, "960-operator.conf"), "w") as f:
+                f.write(kw["add"])
+        t0 = time.perf_counter()
+        packs[name] = compile_ruleset(load_seclang_dir(crs))
+        out["%s_compile_s" % name] = time.perf_counter() - t0
+    packs["tiny"] = _matrix_ruleset()
+    for name, cr in packs.items():
+        cr.save(os.path.join(root, "pack-" + name))
+        out[name] = {"rules": cr.n_rules, "W": cr.tables.n_words,
+                     "version": cr.version}
+    out["paths"] = {n: os.path.join(root, "pack-" + n) for n in packs}
+    out["rules_dir"] = os.path.join(root, "base", "crs")
+    log("rollout packs: bundled %d rules parse %.2fs compile %.2fs, equal "
+        "to the committed pack; %s"
+        % (bundled.n_rules, out["bundled_parse_s"], out["bundled_compile_s"],
+           "; ".join("%s %d rules W=%d" % (n, cr.n_rules, cr.tables.n_words)
+                     for n, cr in packs.items())))
+    return packs, out
+
+
+def phase_rollout_kernels(packs, main_inputs, waves, dev) -> dict:
+    """Both kernels on the ``grow`` and ``tiny`` tables (another W and
+    class count than the bundled pack's) at the main path's shapes: each
+    (B, L) of phase 3's launches through ``ByteScanner`` against
+    ``scan_pairs``, each stream-wave shape of phase 6 through
+    ``StepScanner`` against ``scan_bytes`` with a carried state and
+    sticky match of the pack's width.  Bit-identical or fail."""
+    from ingress_plus_tpu_torch.ops.pair_scan import ByteScanner
+    from ingress_plus_tpu_torch.ops.scan import (
+        ScanTables,
+        from_numpy_u32,
+        scan_bytes,
+        scan_pairs,
+    )
+    from ingress_plus_tpu_torch.ops.step_scan import StepScanner
+
+    rng = np.random.default_rng(SEED + 9)
+    pair_in = {tuple(t.shape): (t, n) for t, n in main_inputs}
+    step_in = {tuple(w[0].shape): w for w in waves}
+    out = {}
+    for name in ("grow", "tiny"):
+        tables = ScanTables.from_bitap(packs[name].tables, dev)
+        W, K1 = tables.n_words, tables.class_table.shape[0]
+        checked = []
+        for (B, L), (tok, n) in sorted(pair_in.items()):
+            t = torch.from_numpy(np.ascontiguousarray(tok)).to(dev)
+            ln = torch.from_numpy(np.asarray(n, np.int32)).to(dev)
+            m, s = ByteScanner(tables)(t, ln)
+            m_ref, s_ref = scan_pairs(tables, t, ln)
+            torch.cuda.synchronize()
+            if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
+                raise SystemExit("rollout: pair kernel differs from "
+                                 "scan_pairs on %s at B=%d L=%d" % (name, B,
+                                                                     L))
+            checked.append("pair %dx%d" % (B, L))
+        for (B, L), (tok, n, _s, _m) in sorted(step_in.items()):
+            match_np, state_np = carried(B, W, rng)
+            t = torch.from_numpy(np.ascontiguousarray(tok)).to(dev)
+            ln = torch.from_numpy(np.asarray(n, np.int32)).to(dev)
+            st = from_numpy_u32(state_np, dev)
+            mt = from_numpy_u32(match_np, dev)
+            m, s = StepScanner(tables)(t, ln, st, mt)
+            m_ref, s_ref = scan_bytes(tables, t, ln, st, mt)
+            torch.cuda.synchronize()
+            if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
+                raise SystemExit("rollout: step kernel differs from "
+                                 "scan_bytes on %s at B=%d L=%d carried"
+                                 % (name, B, L))
+            checked.append("step %dx%d carried" % (B, L))
+        out[name] = {"W": W, "K1": K1, "checked": checked}
+        log("rollout kernels on %s (W=%d, K+1=%d): bit-identical match and "
+            "state at %s" % (name, W, K1, ", ".join(checked)))
+    return out
+
+
+def reference_keys(cr, requests) -> tuple:
+    """The port's CPU verdict keys of ``requests`` on pack ``cr``, with
+    the Batcher's oversized reroute applied (as phase 8 does), and the
+    indices of the rerouted requests."""
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+
+    cpu = DetectionPipeline(cr, device="cpu", fail_open=False)
+    keys = [verdict_key(v) for v in run_pipeline(cpu, requests)]
+    plan_of = SimpleNamespace(OVERSIZE_THRESHOLD=Batcher.OVERSIZE_THRESHOLD)
+    rerouted = []
+    for i, r in enumerate(requests):
+        plan = Batcher._reroute_plan(plan_of, r)
+        if plan is not None:
+            keys[i] = verdict_key(oversized_reference(cpu, r, plan))
+            rerouted.append(i)
+    return keys, rerouted
+
+
+def http_json(port: int, method: str, path: str, body=None,
+              timeout: float = 300.0):
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d%s" % (port, path), method=method,
+        data=json.dumps(body).encode() if body is not None else None)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def merge_shapes(*deltas) -> dict:
+    """{kernel: [shape]} summed over several ``shape_delta`` results."""
+    out: dict = {}
+    for d in deltas:
+        for name, rows in d.items():
+            acc = out.setdefault(name, {})
+            for s in rows:
+                k = (s["B"], s["L"], s["carried"])
+                if k not in acc:
+                    acc[k] = dict(s)
+                    continue
+                for f in ("launches", "known", "steps", "odd_rows"):
+                    acc[k][f] += s[f]
+                acc[k]["lengths"] = s["lengths"]
+    return {n: list(acc.values()) for n, acc in out.items()}
+
+
+def drive_until(srv, requests, wants, states, limit_s: float = 240.0):
+    """Waves of ``requests`` until ``/rollout`` reads one of ``states``;
+    returns the waves' stats (each with the state it ended in)."""
+    out = []
+    t0 = time.perf_counter()
+    while True:
+        st = http_json(srv.port, "GET", "/rollout")[1]
+        if st["state"] in states:
+            return out, st
+        if time.perf_counter() - t0 > limit_s:
+            raise SystemExit("rollout: /rollout still %s after %.0fs (%s)"
+                             % (st["state"], limit_s, st.get(
+                                 "rollback_reason")))
+        w = request_wave(srv.sock, requests, wants, ROLLOUT_WINDOW)
+        w["state_before"] = st["state"]
+        w["fraction_before"] = st["fraction"]
+        out.append(w)
+
+
+def event_time(status: dict, event: str, which: int = -1) -> float:
+    ts = [e["ts"] for e in status["history"] if e["event"] == event]
+    if not ts:
+        raise SystemExit("rollout: no %r event in /rollout history" % event)
+    return ts[which]
+
+
+def phase_rollout(requests, main_inputs, waves, smi: str,
+                  dev: torch.device) -> tuple:
+    """Phase 9: the compiler and the guarded rollout on the card (see
+    the module docstring).  Returns the result, the first server's
+    launches by kernel and shape, and the packs."""
+    root = tempfile.mkdtemp(prefix="ipt-rollout")
+    try:
+        return _phase_rollout(root, requests, main_inputs, waves, smi, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_rollout(root, requests, main_inputs, waves, smi, dev):
+    from ingress_plus_tpu_torch.control.rollout import (
+        RolloutConfig,
+        RolloutController,
+    )
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+    from ingress_plus_tpu_torch.serve.normalize import Request
+
+    packs, info = compile_rollout_packs(root)
+    kern = phase_rollout_kernels(packs, main_inputs, waves, dev)
+    traffic = list(requests) + operator_requests(Request)
+    t0 = time.perf_counter()
+    keys, rerouted = {}, set()
+    for n in ("base", "grow"):
+        keys[n], rr = reference_keys(packs[n], traffic)
+        rerouted.update(rr)
+    ref_s = time.perf_counter() - t0
+    changed = sum(a != b for a, b in zip(keys["base"], keys["grow"]))
+    if changed < 4:
+        raise SystemExit("rollout: grow changes only %d verdicts" % changed)
+    # the canary waves leave out the bodies the Batcher reroutes to the
+    # stream lane: a promote fails an in-flight stream open by design
+    calm = [i for i in range(len(traffic)) if i not in rerouted]
+    calm_reqs = [traffic[i] for i in calm]
+    calm_keys = {n: [k[i] for i in calm] for n, k in keys.items()}
+    # the CPU pipeline's admission report for the same pair of packs
+    cpu_inc = DetectionPipeline(packs["base"], device="cpu")
+    cpu_cand = DetectionPipeline(packs["grow"], device="cpu")
+    cpu_ro = RolloutController(
+        SimpleNamespace(pipeline=cpu_inc,
+                        _cpu_fallback_ok=Batcher._cpu_fallback_ok),
+        RolloutConfig())
+    cpu_report = cpu_ro._replay_diff(cpu_inc, cpu_cand)
+    lkg = os.path.join(root, "lkg")
+    args = ("--rules-dir", info["rules_dir"], "--lkg-dir", lkg)
+    res = {"card": smi, "packs": info, "kernels": kern,
+           "reference_s": ref_s, "verdicts_grow_changes": changed,
+           "knobs": ROLLOUT_KNOBS, "window": ROLLOUT_WINDOW}
+    with ServeChild(*args) as srv:
+        res["startup_s"] = srv.startup_s
+        conf = http_json(srv.port, "GET", "/configuration")[1]
+        if conf["ruleset"] != packs["base"].version:
+            raise SystemExit("rollout: --rules-dir serves %s, not the base "
+                             "compile %s" % (conf["ruleset"],
+                                             packs["base"].version))
+        serve0, ro0 = kernel_shapes(srv), kernel_shapes(srv, "rollout")
+        res["before"] = request_wave(srv.sock, traffic, [keys["base"]],
+                                     ROLLOUT_WINDOW)
+        # stage grow: admission on the card
+        t0 = time.perf_counter()
+        status, rep = http_json(srv.port, "POST", "/configuration/ruleset",
+                                {"path": info["paths"]["grow"],
+                                 **ROLLOUT_KNOBS})
+        res["admit_http_s"] = time.perf_counter() - t0
+        if status != 200 or not rep.get("staged"):
+            raise SystemExit("rollout: grow was not admitted: %d %s"
+                             % (status, rep))
+        if rep["replay"] != cpu_report:
+            raise SystemExit("rollout: the card's admission report %s "
+                             "differs from the cpu pipeline's %s"
+                             % (rep["replay"], cpu_report))
+        st = http_json(srv.port, "GET", "/rollout")[1]
+        res["admission_s"] = st["admission_s"]
+        res["replay"] = rep["replay"]
+        canary, st = drive_until(srv, calm_reqs,
+                                 [calm_keys["base"], calm_keys["grow"]],
+                                 ("live", "rolled_back", "rejected"))
+        if st["state"] != "live":
+            raise SystemExit("rollout: grow ended %s (%s)"
+                             % (st["state"], st["rollback_reason"]))
+        res["canary_waves"] = canary
+        res["admit_to_live_s"] = (event_time(st, "live")
+                                  - event_time(st, "admitted"))
+        res["rollout_status"] = {k: st[k] for k in (
+            "candidate_requests", "candidate_failures",
+            "candidate_fail_open", "shadow", "diff", "promotions")}
+        conf = http_json(srv.port, "GET", "/configuration")[1]
+        if conf["ruleset"] != packs["grow"].version:
+            raise SystemExit("rollout: live but serving %s" % conf["ruleset"])
+        res["after"] = request_wave(srv.sock, traffic, [keys["grow"]],
+                                    ROLLOUT_WINDOW)
+        # rejections: nothing changes
+        res["rejected"] = {}
+        for name, stage, reason in (("overblock", "replay", "benign_blocks"),
+                                    ("lossy", "replay", "new_fns")):
+            status, body = http_json(srv.port, "POST",
+                                     "/configuration/ruleset",
+                                     {"path": info["paths"][name],
+                                      **ROLLOUT_KNOBS})
+            if status != 422 or (body.get("stage"), body.get("reason")) != (
+                    stage, reason):
+                raise SystemExit("rollout: %s was not rejected at %s/%s: "
+                                 "%d %s" % (name, stage, reason, status,
+                                            body))
+            res["rejected"][name] = {k: body[k] for k in ("stage", "reason")}
+            res["rejected"][name]["detail"] = {
+                k: body["detail"][k] for k in ("new_fns", "benign_new_blocks",
+                                               "new_blocks", "score_deltas")}
+            if http_json(srv.port, "GET", "/configuration")[1][
+                    "ruleset"] != packs["grow"].version:
+                raise SystemExit("rollout: rejecting %s changed serving"
+                                 % name)
+        # base again, aborted mid-canary
+        status, body = http_json(srv.port, "POST", "/configuration/ruleset",
+                                 {"path": info["paths"]["base"],
+                                  **ROLLOUT_KNOBS,
+                                  "step_min_requests": 1 << 30})
+        if status != 200:
+            raise SystemExit("rollout: base was not admitted over grow: %d "
+                             "%s" % (status, body))
+        part = calm_reqs[:512]
+        part_keys = [k[:512] for k in (calm_keys["grow"], calm_keys["base"])]
+        drive_until(srv, part, part_keys, ("canary",))
+        request_wave(srv.sock, part, part_keys, ROLLOUT_WINDOW)
+        status, body = http_json(srv.port, "POST", "/rollout",
+                                 {"action": "abort"})
+        if not body.get("aborted") or body["state"] != "rolled_back":
+            raise SystemExit("rollout: abort mid-canary failed: %s" % body)
+        res["abort"] = {"state": body["state"],
+                        "reason": body["rollback_reason"],
+                        "candidate_requests": body["candidate_requests"]}
+        request_wave(srv.sock, part, [part_keys[0]], ROLLOUT_WINDOW)
+        # base once more, SIGKILL mid-canary
+        status, body = http_json(srv.port, "POST", "/configuration/ruleset",
+                                 {"path": info["paths"]["base"],
+                                  **ROLLOUT_KNOBS,
+                                  "step_min_requests": 1 << 30})
+        if status != 200:
+            raise SystemExit("rollout: base was not admitted again: %d %s"
+                             % (status, body))
+        drive_until(srv, part, part_keys, ("canary",))
+        metrics = srv.metrics()
+        serve1, ro1 = kernel_shapes(srv), kernel_shapes(srv, "rollout")
+        srv.child.kill()
+        srv.child.wait()
+        res["killed_in"] = "canary"
+    check_serve_metrics("rollout (first server)", metrics)
+    shapes = merge_shapes(shape_delta(serve0, serve1),
+                          shape_delta(ro0, ro1))
+    res["launches"] = {
+        "serve_scope": {k: serve1[k]["launches"] - serve0[k]["launches"]
+                        for k in serve1},
+        "rollout_scope": {k: ro1[k]["launches"] - ro0[k]["launches"]
+                          for k in ro1}}
+    with ServeChild(*args) as srv:
+        conf = http_json(srv.port, "GET", "/configuration")[1]
+        if conf["ruleset"] != packs["grow"].version:
+            raise SystemExit("rollout: the restart serves %s, not the LKG "
+                             "grow %s" % (conf["ruleset"],
+                                          packs["grow"].version))
+        res["restart"] = request_wave(srv.sock, traffic, [keys["grow"]],
+                                      ROLLOUT_WINDOW)
+        res["restart_startup_s"] = srv.startup_s
+        check_serve_metrics("rollout (restart)", srv.metrics())
+    b, c = res["before"], res["canary_waves"]
+    log("rollout: base %s -> grow %s live in %.1fs after admission "
+        "(admission %s s on the card; replay equal to the cpu pipeline's: "
+        "%s); overblock and lossy rejected at replay; base aborted "
+        "mid-canary; SIGKILL mid-canary, the restart serves grow from the "
+        "LKG; wire %.1f req/s before (p50 %.2f p99 %.2f ms), %s during the "
+        "canary; launches %s"
+        % (packs["base"].version, packs["grow"].version,
+           res["admit_to_live_s"], json.dumps(res["admission_s"]),
+           json.dumps(res["replay"]), b["wire_req_per_s"], b["p50_ms"],
+           b["p99_ms"], ", ".join("%.1f req/s (p50 %.2f p99 %.2f ms, %s %s)"
+                                  % (w["wire_req_per_s"], w["p50_ms"],
+                                     w["p99_ms"], w["state_before"],
+                                     w["fraction_before"]) for w in c),
+           json.dumps(res["launches"])))
+    return res, shapes, packs
+
+
+def phase_rollout_timing(packs, shapes, pool, dev: torch.device) -> dict:
+    """Both kernels at every shape phase 9's first server launched
+    (serving cycles of both generations and the rollout's admission and
+    shadow work), re-timed as phase 8 does, on the candidate's (grow)
+    tables."""
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
+    from ingress_plus_tpu_torch.ops.scan import (
+        ScanTables,
+        scan_bytes,
+        scan_pairs,
+    )
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+
+    tables = ScanTables.from_bitap(packs["grow"].tables, dev)
+    return {
+        "pair_scan": retime_shapes(
+            "rollout pair", ByteScanner(tables), PAIR_SCAN,
+            lambda t, n, *c: scan_pairs(tables, t, n, *c), tables,
+            shapes.get("pair_scan", []), pool, dev, "pair"),
+        "step_scan": retime_shapes(
+            "rollout step", StepScanner(tables), STEP_SCAN,
+            lambda t, n, *c: scan_bytes(tables, t, n, *c), tables,
+            shapes.get("step_scan", []), pool, dev, "step")}
+
+
+def phase_fault_matrix(dev: torch.device) -> dict:
+    """Phase 10: every ported fault scenario on a batcher on the card,
+    with the card's invariants (breaker-open batches fail open; nothing
+    moves to the host)."""
+    from ingress_plus_tpu_torch.utils.faults import (
+        SCENARIOS,
+        run_fault_matrix,
+    )
+
+    t0 = time.perf_counter()
+    rep = run_fault_matrix(device=dev)
+    wall = time.perf_counter() - t0
+    for name, r in rep["scenarios"].items():
+        checked = {k: v for k, v in r.items()
+                   if k not in ("ok", "violations", "seconds")}
+        log("fault %s: %s in %.2fs; %s%s"
+            % (name, "ok" if r["ok"] else "FAILED", r["seconds"],
+               json.dumps(checked, default=str),
+               "" if r["ok"] else " violations: %s" % r["violations"]))
+    if not rep["passed"] or len(rep["scenarios"]) != len(SCENARIOS):
+        raise SystemExit("fault matrix: %d of %d scenarios ok"
+                         % (sum(r["ok"] for r in rep["scenarios"].values()),
+                            len(SCENARIOS)))
+    return {"scenarios": {n: {"ok": r["ok"], "seconds": r["seconds"]}
+                          for n, r in rep["scenarios"].items()},
+            "not_ported": rep["not_ported"], "wall_s": wall}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
@@ -1565,11 +2090,17 @@ def main() -> int:
     main_path = phase_main_shapes(kern["tables"], inputs, dev)
     step = phase_step_kernel(kern["tables"], dev)
     pallas = phase_pallas_pipeline(cr, dev, requests, want)
-    stream = phase_stream(cr, dev)
+    stream, stream_waves = phase_stream(cr, dev)
     serve, serve_shapes, pool = phase_serve(requests, want,
                                             stream["cpu_keys"], smi)
     log("serve " + json.dumps(serve))
     serve_k = phase_serve_kernels(kern["tables"], serve_shapes, pool, dev)
+    rollout, rollout_shapes, rollout_packs = phase_rollout(
+        requests, inputs, stream_waves, smi, dev)
+    log("rollout " + json.dumps(rollout))
+    rollout_k = phase_rollout_timing(rollout_packs, rollout_shapes, pool,
+                                     dev)
+    fault_matrix = phase_fault_matrix(dev)
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -1578,7 +2109,8 @@ def main() -> int:
         "scan_shapes": kern["shapes"], "edges": kern["edges"],
         "sweep": sweep, "step_scan": step, "pallas_pipeline": pallas,
         "stream": stream, "serve": serve, "serve_kernels": serve_k,
-        "sass": sass,
+        "rollout": rollout, "rollout_kernels": rollout_k,
+        "fault_matrix": fault_matrix, "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -1631,7 +2163,30 @@ def main() -> int:
         for name, what in (("pair_scan", "batches on pallas3 (raw_byte)"),
                            ("step_scan", "stream lane and oversized "
                                          "bodies"))]
-    print(json.dumps({"kernels": serve_entries + [entry(
+    rollout_entries = [entry(
+        name, "rollout (phase 9): %s" % what, rollout_k[name]["total"],
+        rollout_k[name]["total"]["max_abs_err"],
+        parity="bit-identical match and state at each of the phase 9 "
+               "server's %d (B, L, carried) shapes on the grow pack's "
+               "tables (W=%d); both kernels also on the grow and tiny "
+               "tables at the main path's shapes"
+               % (len(rollout_k[name]["shapes"]),
+                  rollout["kernels"]["grow"]["W"]),
+        shape="the phase 9 server's %d launches (serving cycles of both "
+              "generations: %d; the rollout's admission and shadow work: "
+              "%d), each shape's device time once per launch of it, on "
+              "the candidate's (grow) tables"
+              % (rollout_k[name]["total"]["launches"],
+                 rollout["launches"]["serve_scope"][name],
+                 rollout["launches"]["rollout_scope"][name]),
+        segments=segment_rows("rollout path",
+                              rollout_k[name]["shapes"].values()))
+        for name, what in (("pair_scan", "admission replay, warm, smoke "
+                                         "and shadow scans, and the "
+                                         "canary's batches on pallas3"),
+                           ("step_scan", "the rerouted body before and "
+                                         "after the rollout"))]
+    print(json.dumps({"kernels": serve_entries + rollout_entries + [entry(
         "pair_scan", "library: pallas3 batch path (phase 3)", tot,
         max(s[c]["max_abs_err"] for s in kern["shapes"]
             for c in ("raw_byte", "class_id")),

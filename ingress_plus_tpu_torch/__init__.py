@@ -6,7 +6,10 @@ H100.  It mirrors the JAX package's layout (``compiler/``, ``ops/``,
 points take ``device`` and default to ``cuda``; without a card they
 raise.  ``device="cpu"`` runs the plain PyTorch versions of the kernels.
 
-The hand-written CUDA kernel lives in ``csrc/`` and is built at first use
-(ops/pair_scan.py).  The bundled OWASP-CRS-shaped pack ships compiled in
-``packs/`` (weights.py ``load_pack``).
+The hand-written CUDA kernels live in ``csrc/`` and are built at first
+use (ops/cuda_build.py).  The SecLang compiler (``compiler/``) compiles the
+port's copy of the OWASP-CRS-shaped rules (``rules/``) into the same packs
+as the JAX compiler; the bundled pack also ships compiled in ``packs/``
+(weights.py ``load_pack``).  ``control/rollout.py`` takes rule changes
+through the guarded rollout.
 """

@@ -1,1 +1,2 @@
-"""Control-plane pieces the serve plane needs (tenant rule-tag tables)."""
+"""Control plane: tenant rule-tag tables (sync.py) and the guarded
+ruleset rollout (rollout.py)."""

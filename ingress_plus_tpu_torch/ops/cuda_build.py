@@ -18,8 +18,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -156,6 +157,31 @@ def device_words(x: Optional[torch.Tensor],
     return None if x is None else x.to(dev, torch.int32).contiguous()
 
 
+#: the launch scope of the calling thread (:func:`launch_scope`)
+_scope = threading.local()
+
+#: the scope of every launch outside a :func:`launch_scope` block: the
+#: serving cycles (lane workers, the stream lane, library callers)
+SERVE_SCOPE = "serve"
+#: the guarded rollout's admission and shadow work (control/rollout.py)
+ROLLOUT_SCOPE = "rollout"
+
+
+@contextmanager
+def launch_scope(name: str) -> Iterator[None]:
+    """Tally this thread's kernel launches under ``name`` inside the
+    block (the guarded rollout's admission and shadow work use
+    ``ROLLOUT_SCOPE``), so the per-shape tally of the serving cycles stays the
+    serving cycles' own.  Every launch still adds one to
+    ``ScanKernel.launches``."""
+    prev = getattr(_scope, "name", SERVE_SCOPE)
+    _scope.name = name
+    try:
+        yield
+    finally:
+        _scope.name = prev
+
+
 class ScanKernel:
     """ctypes binding of one scan kernel, plus its launch count and a
     per-shape tally of its launches (:meth:`shape_snapshot`).
@@ -173,9 +199,9 @@ class ScanKernel:
         self.name = name
         self.class_ids = class_ids
         self.launches = 0
-        # (B, L, carried) -> [launches, launches with host lengths,
-        # sum of clamp(length, 0, L), rows of odd length, the latest
-        # such launch's clamped lengths]
+        # (scope, B, L, carried) -> [launches, launches with host
+        # lengths, sum of clamp(length, 0, L), rows of odd length, the
+        # latest such launch's clamped lengths]
         self._shapes: Dict[tuple, list] = {}
         self._shapes_lock = threading.Lock()
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -194,8 +220,9 @@ class ScanKernel:
                host: Optional[torch.Tensor]) -> None:
         n = (None if host is None
              else host.to(torch.int64).clamp(0, L).numpy())
+        key = (getattr(_scope, "name", SERVE_SCOPE), B, L, carried)
         with self._shapes_lock:
-            t = self._shapes.setdefault((B, L, carried), [0, 0, 0, 0, None])
+            t = self._shapes.setdefault(key, [0, 0, 0, 0, None])
             t[0] += 1
             if n is not None:
                 t[1] += 1
@@ -203,18 +230,26 @@ class ScanKernel:
                 t[3] += int((n & 1).sum())
                 t[4] = n
 
-    def shape_snapshot(self) -> list:
-        """The launches so far by (B, L, carried), as JSON-ready dicts:
-        ``launches``; over the ``known`` launches whose caller passed
-        the lengths on the host, ``steps`` (the sum of every row's
-        clamped length: the work the kernel did) and ``odd_rows``; and
-        ``lengths``, the latest such launch's clamped lengths."""
+    def shape_snapshot(self, scope: str = SERVE_SCOPE) -> list:
+        """The launches of one :func:`launch_scope` so far by (B, L,
+        carried), as JSON-ready dicts: ``launches``; over the ``known``
+        launches whose caller passed the lengths on the host, ``steps``
+        (the sum of every row's clamped length: the work the kernel did)
+        and ``odd_rows``; and ``lengths``, the latest such launch's
+        clamped lengths."""
         with self._shapes_lock:
-            items = [(k, list(v)) for k, v in sorted(self._shapes.items())]
+            items = [(k[1:], list(v)) for k, v in sorted(self._shapes.items())
+                     if k[0] == scope]
         return [{"B": B, "L": L, "carried": c, "launches": t[0],
                  "known": t[1], "steps": t[2], "odd_rows": t[3],
                  "lengths": None if t[4] is None else t[4].tolist()}
                 for (B, L, c), t in items]
+
+    def scope_launches(self, scope: str = SERVE_SCOPE) -> int:
+        """The launches tallied under one :func:`launch_scope`."""
+        with self._shapes_lock:
+            return sum(t[0] for k, t in self._shapes.items()
+                       if k[0] == scope)
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor,
                  class_tiles: torch.Tensor, init_mask: torch.Tensor,

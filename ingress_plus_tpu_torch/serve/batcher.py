@@ -51,9 +51,13 @@ behavior.
 The port of ``ingress_plus_tpu/serve/batcher.py``: lane devices are
 torch devices (one per CUDA card, or the pipeline engine's own device),
 each lane launches on its own CUDA stream, and ``device_path_snapshot``
-reports ``cuda`` or ``cpu`` with the card's name.  No guarded rollout is
-ported: a swap is the one-shot ``swap_ruleset``, and the canary and
-shadow hooks of the JAX dispatch loops are not here.
+reports ``cuda`` or ``cpu`` with the card's name.  The guarded rollout
+(control/rollout.py) hooks in as in the JAX loops: ``self.rollout``, the
+canary split and the candidate dispatch (``_detect_candidate``) in both
+loops, the off-lock shadow mirror / canary accounting / promotion tick,
+and the abort of a staged rollout on a force swap.  On a card, a
+candidate canary batch under an open breaker fails open like the
+incumbent's (never ``detect_cpu_only``).
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -88,6 +92,7 @@ from ingress_plus_tpu_torch.utils.trace import (
     EV_CYCLE,
     EV_DRAIN,
     EV_LAUNCH,
+    EV_MIRROR,
     EV_OVERSIZED,
     EV_QUEUE,
     EV_STREAM,
@@ -307,7 +312,7 @@ class _MeshCycle:
     finalized one drain later (the double buffer)."""
 
     __slots__ = (
-        "cid", "t0", "guard", "route", "pipeline",
+        "cid", "t0", "guard", "route", "pipeline", "ro", "cand_items",
         "lane_parts", "fallback_items", "finish_verdicts", "deg_done",
         "n_reqs", "n_finishes", "n_stream_items", "min_ts",
         "max_queue_delay_us", "engine_us0", "confirm_us0", "prep_us0",
@@ -317,7 +322,7 @@ class _MeshCycle:
         # whose scan collected and confirm launched, the verdicts
         # already resolved during collection, and the collection
         # window's stage deltas (folded into the trace at resolve)
-        "pending_fins", "done",
+        "pending_fins", "done", "cand_verdicts", "cand_served",
         "collect_d_engine", "collect_d_confirm", "collect_d_prep",
         "collect_d_compiles",
     )
@@ -325,6 +330,11 @@ class _MeshCycle:
     def __init__(self):
         self.overlap_drain_s = 0.0
         self.cid = 0   # flight-recorder cycle id (stats.batches stamp)
+        # the canary share (none unless a rollout ramp splits one off)
+        self.ro = None
+        self.cand_items: List = []
+        self.cand_verdicts: List = []
+        self.cand_served = False
 
 
 class _CycleGuard:
@@ -502,6 +512,10 @@ class Batcher:
                              + confirm_grace)
         self._stop = threading.Event()
         self._swap_lock = named_lock("Batcher._swap_lock")
+        # guarded-rollout controller (control/rollout.py), attached by
+        # the serve layer; None keeps the clean path at two attribute
+        # reads per cycle (docs/ROBUSTNESS.md "Guarded rollout")
+        self.rollout = None
         # silent-thread-death repair: uncaught exceptions in
         # ANY worker thread count into ipt_thread_uncaught_total{thread=}
         # and surface in /healthz — the runtime counterpart of
@@ -960,6 +974,12 @@ class Batcher:
         if getattr(old, "confirm_cache", None) is not None:
             old.confirm_cache.invalidate("hot_swap")
             new.confirm_cache = old.confirm_cache
+        # break-glass force swap during a staged rollout: the candidate
+        # generation is aborted (quarantined, reason exported) BEFORE the
+        # new pack installs — after the fault site and the build, so a
+        # swap that fails changes neither plane
+        if self.rollout is not None:
+            self.rollout.abort("force_swap")
         with self._swap_lock:
             # reload-drift snapshot: freeze the outgoing
             # version's per-rule counters at the instant it stops
@@ -1022,6 +1042,8 @@ class Batcher:
             n += 1
 
     def close(self) -> None:
+        if self.rollout is not None:
+            self.rollout.close()
         self._stop.set()
         self._thread.join(timeout=5)
         self._oversized_thread.join(timeout=5)
@@ -1184,6 +1206,54 @@ class Batcher:
             lane.breaker.record_failure()
         p.stats.count_fail_open(len(requests))
         return [_fail_open_verdict(r.request_id) for r in requests]
+
+    def _detect_candidate(self, requests: List[Request], ro,
+                          route: str,
+                          lane: Optional[Lane] = None
+                          ) -> Tuple[List[Verdict], bool]:
+        """Candidate-generation dispatch for the canary ramp
+        (control/rollout.py).  Rides a watchdogged lane (the primary,
+        or the mesh cycle's serving lane) and follows the cycle's
+        breaker route — but failures are attributed to the CANDIDATE:
+        they count toward the rollout's rollback triggers and NEVER
+        toward the shared breaker, so a bad candidate pack cannot push
+        the incumbent path onto its breaker-open route.
+
+        Breaker open: a CPU candidate scans CPU-only (a suspect device
+        must not be probed by the canary either); a card candidate's
+        batch fails open, counted like the incumbent's
+        (``breaker_fail_open_batches``), never as the candidate's.
+        Returns (verdicts, counted): ``counted`` is False only for that
+        card breaker-open batch, which the canary accounting skips (its
+        fail-open verdicts are the incumbent path's fault, not the
+        candidate's)."""
+        cand = ro.candidate
+        if lane is None:
+            lane = self.lanes.primary
+        if cand is None:
+            # rolled back between split and dispatch: serve these
+            # through the incumbent — the generation they now belong to
+            return self._detect_guarded(requests, route), True
+        if route == "fallback":
+            if not self._cpu_fallback_ok(cand):
+                self.stats.breaker_fail_open_batches += 1
+                self.pipeline.stats.count_fail_open(len(requests))
+                return [_fail_open_verdict(r.request_id)
+                        for r in requests], False
+            return cand.detect_cpu_only(requests), True
+        try:
+            cid = flight.cycle()
+            return lane.call(
+                lambda: flight.scoped(cid, cand.detect_strict, requests),
+                self.hang_budget_s), True
+        except DeviceHang:
+            self.stats.hangs += 1
+            lane.stats.hangs += 1
+            ro.record_candidate_failure("hang")
+        except Exception:
+            ro.record_candidate_failure("error")
+        self.pipeline.stats.count_fail_open(len(requests))
+        return [_fail_open_verdict(r.request_id) for r in requests], True
 
     def _arm_guard(self, t0: float, items: List) -> _CycleGuard:
         g = _CycleGuard(t0 + self._watch_grace, items)
@@ -1364,7 +1434,10 @@ class Batcher:
                 compiles0 = ps.engine_compiles
                 finish_verdicts = self._stream_step_guarded(
                     begins, chunks, finishes, route)
-                # quarantined tenants' share: prefilter-only
+                # quarantined tenants' share: prefilter-only, before
+                # the canary split (the candidate generation must never
+                # serve tenant-degraded traffic — its rollback triggers
+                # key on verdict quality)
                 self._detect_tenant_degraded(deg_reqs, done, route)
                 # partition: oversized bodies go through the stream
                 # engine inline; everything else batches as usual
@@ -1379,6 +1452,15 @@ class Batcher:
                         self._submit_oversized(ts, r, plan, fut)
                     else:
                         normal.append(item)
+                # canary generation split (control/rollout.py): during a
+                # ramp, the deterministic request-id hash sends this
+                # cycle's share of requests through the CANDIDATE
+                # pipeline instead — each request is served by exactly
+                # one generation; idle rollout = one attribute read
+                ro = self.rollout
+                cand_items: List = []
+                if ro is not None and ro.canary_active:
+                    normal, cand_items = ro.split(normal)
                 requests = [r for _, r, _ in normal]
                 if requests:
                     try:
@@ -1387,6 +1469,20 @@ class Batcher:
                         verdicts = [_fail_open_verdict(r.request_id)
                                     for r in requests]
                     for (ts, r, fut), v in zip(normal, verdicts):
+                        _safe_set(fut, v)
+                        done.append((ts, r, v, 0))
+                cand_verdicts: List[Verdict] = []
+                cand_served = False
+                if cand_items:
+                    creqs = [r for _, r, _ in cand_items]
+                    try:
+                        cand_verdicts, cand_served = self._detect_candidate(
+                            creqs, ro, route)
+                    except Exception:
+                        cand_verdicts = [_fail_open_verdict(r.request_id)
+                                         for r in creqs]
+                        cand_served = True
+                    for (ts, r, fut), v in zip(cand_items, cand_verdicts):
                         _safe_set(fut, v)
                         done.append((ts, r, v, 0))
                 # end-delta sample, still under the lock (stats object
@@ -1398,6 +1494,13 @@ class Batcher:
                 d_compiles = ps.engine_compiles - compiles0
             self._clear_guard(guard)
             flight.end(EV_CYCLE, cycle=cid)
+            # rollout hooks OFF the swap lock: shadow mirroring (never
+            # on the verdict path — the futures above already resolved),
+            # canary accounting, and the deferred-promotion pump (tick
+            # needs the swap lock the dispatch thread just released)
+            if ro is not None:
+                self._rollout_hooks(ro, done, cid,
+                                    cand_verdicts if cand_served else None)
             t_end = time.perf_counter()
             took = t_end - t0
             # fail-safe plane signals: cycle-time EWMA feeds the
@@ -1441,10 +1544,26 @@ class Batcher:
                 # this batch's spans — those ids resolve via their
                 # /debug/slow exemplar instead
                 request_ids=[r.request_id for _, r, _ in normal]
+                + [r.request_id for _, r, _ in cand_items]
                 + [r.request_id for _, r, _ in deg_reqs]
                 + [h.request.request_id for h, _ in finish_verdicts])
             self.traces.record(trace)
             self._observe(trace, done, finish_verdicts, t0, t_end)
+
+    @staticmethod
+    def _rollout_hooks(ro, done, cid: int, cand_verdicts) -> None:
+        """A cycle's rollout hooks, off the swap lock: mirror the
+        resolved verdicts into the shadow lane, account the candidate's
+        canary share (``cand_verdicts`` None: no share it answered), and
+        pump a deferred promotion."""
+        if ro.shadow_active:
+            flight.begin(EV_MIRROR, cycle=cid, arg=len(done))
+            for _ts, r, v, _lane in done:
+                ro.mirror(r, v)
+            flight.end(EV_MIRROR, cycle=cid)
+        if cand_verdicts:
+            ro.observe_canary(len(cand_verdicts), cand_verdicts)
+        ro.tick()
 
     # ------------------------------------------------- mesh (N lanes)
 
@@ -1582,8 +1701,8 @@ class Batcher:
                 begins, chunks, finishes, stream_route, lane=primary)
             # quarantined tenants' share: prefilter-only on the primary
             # lane (the prefilter rides the default device, like stream
-            # work), resolved at launch — never a lane share (same
-            # contract as the single-lane loop)
+            # work), resolved at launch — never a lane share, never the
+            # canary split (same contract as the single-lane loop)
             c.deg_done = []
             self._detect_tenant_degraded(deg_reqs, c.deg_done,
                                          stream_route, lane=primary)
@@ -1605,6 +1724,12 @@ class Batcher:
                     self._submit_oversized(ts, r, plan, fut)
                 else:
                     normal.append(item)
+            # the canary generation split, as in the single-lane loop
+            ro = self.rollout
+            c.cand_items = []
+            if ro is not None and ro.canary_active:
+                normal, c.cand_items = ro.split(normal)
+            c.ro = ro
             c.lane_parts = []
             c.fallback_items = []
             if normal and not targets:
@@ -1651,7 +1776,8 @@ class Batcher:
     def _collect_cycle(self, c: "_MeshCycle") -> None:
         """Phase B1 of a mesh cycle: bounded per-lane SCAN collection
         (wait, mask) + confirm LAUNCH on the pool, per-lane breaker
-        accounting and the breaker-open share.  Shares whose lane
+        accounting, the breaker-open share, and the canary candidate
+        share.  Shares whose lane
         wedged or raised resolve fail-open here; everything else's
         verdicts land in :meth:`_resolve_cycle` once the confirm shares
         join."""
@@ -1722,17 +1848,34 @@ class Batcher:
                         done.append((ts, r, v, -1))
                 except Exception:
                     done += self._fail_open_part(p, c.fallback_items, -1)
+            cand_verdicts: List[Verdict] = []
+            c.cand_served = False
+            if c.cand_items:
+                creqs = [r for _, r, _ in c.cand_items]
+                cand_lane = (c.lane_parts[0][0] if c.lane_parts
+                             else self.lanes.primary)
+                try:
+                    cand_verdicts, c.cand_served = self._detect_candidate(
+                        creqs, c.ro, c.route, lane=cand_lane)
+                except Exception:
+                    cand_verdicts = [_fail_open_verdict(r.request_id)
+                                     for r in creqs]
+                    c.cand_served = True
+                for (ts, r, fut), v in zip(c.cand_items, cand_verdicts):
+                    _safe_set(fut, v)
+                    done.append((ts, r, v, cand_lane.index))
             c.collect_d_engine = ps.engine_us - e0
             c.collect_d_confirm = ps.confirm_us - cf0
             c.collect_d_prep = ps.prep_us - pp0
             c.collect_d_compiles = ps.engine_compiles - cp0
         c.pending_fins = fins
         c.done = done
+        c.cand_verdicts = cand_verdicts
 
     def _resolve_cycle(self, c: "_MeshCycle") -> None:
         """Phase B2 of a mesh cycle: bounded-join the confirm shares,
-        resolve the remaining verdict futures and the cycle's
-        observability.  With an inline confirm pool this runs
+        resolve the remaining verdict futures, rollout hooks, and the
+        cycle's observability.  With an inline confirm pool this runs
         back-to-back with B1 (the confirm already completed inside the
         launch — the classic mesh loop); with pool workers it runs one
         drain later, the confirm having overlapped the next cycle's
@@ -1767,6 +1910,9 @@ class Batcher:
                           + ps.engine_compiles - cp0)
         self._clear_guard(c.guard)
         flight.end(EV_CYCLE, cycle=c.cid)
+        if c.ro is not None:
+            self._rollout_hooks(c.ro, done, c.cid,
+                                c.cand_verdicts if c.cand_served else None)
         t_end = time.perf_counter()
         took = max(t_end - c.t0 - c.overlap_drain_s, 0.0)
         if d_compiles == 0:

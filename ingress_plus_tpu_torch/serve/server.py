@@ -14,14 +14,24 @@ full detection — docs/ROBUSTNESS.md), ``/faults`` (the
 deterministic fault-injection plan, utils/faults.py), and
 ``/debug/kernels`` (each scan kernel's launches by shape).
 
-Not here (their modules are not ported): a rules directory (the
-compiler; the pack is the committed bundled pack), the guarded rollout
-(``/rollout``, staged swaps, the LKG), the learned scoring head
+Rules: ``--rules-dir R`` compiles the SecLang tree ``R`` with the port's
+own compiler (``compiler/``) at startup, and a tree that does not
+compile exits non-zero; without it the server loads the committed
+bundled pack.  A pack that reached live under a staged rollout is the
+last-known-good (``--lkg-dir``), which a restart prefers over both.
+``POST /configuration/ruleset`` takes a compiled pack through the
+guarded rollout (control/rollout.py: admission gate, shadow, canary
+ramp, promote or rollback; ``?mode=force`` is the break-glass one-shot
+swap), ``/rollout`` reads or aborts it, and ``/rules/stats?format=
+profile`` exports the ``MeasuredProfile``.
+
+Not here (their modules are not ported): the learned scoring head
 (``/scoring``), the post plane (``/wallarm-status`` answers
 ``{"postanalytics": "disabled"}``), the admission front and ``--mesh``.
 
 Run:  python -m ingress_plus_tpu_torch.serve --socket /tmp/ipt.sock \
-          [--http-port 9901] [--mode block] [--platform cuda|cpu]
+          [--http-port 9901] [--mode block] [--platform cuda|cpu] \
+          [--rules-dir R] [--lkg-dir D]
 
 ``--platform`` defaults to ``cuda``: without a card the process exits
 non-zero at startup, it never serves on the CPU unless asked to.  On
@@ -43,6 +53,7 @@ import torch
 
 from ingress_plus_tpu_torch.models.engine import DetectionEngine
 from ingress_plus_tpu_torch.models.pipeline import Verdict
+from ingress_plus_tpu_torch.ops.cuda_build import SERVE_SCOPE
 from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
 from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
 from ingress_plus_tpu_torch.serve.batcher import Batcher
@@ -109,7 +120,8 @@ METRIC_HELP = {
     "ipt_engine_recompiles_total":
         "serve-time first loads (a kernel or a table replica on a device)",
     "ipt_confirm_workers": "confirm pool size (1 = inline serial walk)",
-    "ipt_kernel_launches_total": "scan kernel launches by kernel",
+    "ipt_kernel_launches_total":
+        "scan kernel launches of the serving cycles, by kernel",
     "ipt_confirm_quick_reject_total":
         "confirm evaluations resolved by the literal quick-reject",
     "ipt_confirm_regex_evals_total": "confirm re.search evaluations",
@@ -512,13 +524,15 @@ class ServeLoop:
                if eff["dispatch_fill"] is not None else "NaN"),
             "# TYPE ipt_engine_recompiles_total counter",
             "ipt_engine_recompiles_total %d" % p.engine_compiles,
-            # every launch of each scan kernel in this process (the
-            # wrappers' own counts; 0 on cpu, where none launches)
+            # each scan kernel's launches of the serving cycles in this
+            # process, not the rollout's admission and shadow work
+            # (ops/cuda_build.launch_scope; /debug/kernels?scope=rollout
+            # has those); 0 on cpu, where none launches
             "# TYPE ipt_kernel_launches_total counter",
             'ipt_kernel_launches_total{kernel="pair_scan"} %d'
-            % PAIR_SCAN.launches,
+            % PAIR_SCAN.scope_launches(SERVE_SCOPE),
             'ipt_kernel_launches_total{kernel="step_scan"} %d'
-            % STEP_SCAN.launches,
+            % STEP_SCAN.scope_launches(SERVE_SCOPE),
         ]
         # --- fail-safe serve plane (docs/ROBUSTNESS.md): bounded
         # admission, brownout ladder, dispatch breaker/watchdog
@@ -643,6 +657,40 @@ class ServeLoop:
         lines += bounded_counter_series(
             "ipt_bucket_rows_total", "bucket",
             {str(k): v for k, v in dict(p.bucket_rows).items()})
+        # --- guarded rollout (control/rollout.py, docs/ROBUSTNESS.md):
+        # state machine gauge + per-phase counters.  Absent entirely
+        # when no controller is attached (library batchers).
+        ro = self.batcher.rollout
+        if ro is not None:
+            from ingress_plus_tpu_torch.control.rollout import STATES
+            st = ro.status()
+            lines += [
+                "# TYPE ipt_rollout_state gauge",
+                "ipt_rollout_state %d" % STATES.index(st["state"]),
+                "# TYPE ipt_rollout_step gauge",
+                "ipt_rollout_step %d" % st["step"],
+                "# TYPE ipt_rollout_fraction gauge",
+                "ipt_rollout_fraction %s" % st["fraction"],
+                "# TYPE ipt_rollout_candidate_requests_total counter",
+                "ipt_rollout_candidate_requests_total %d"
+                % st["candidate_requests"],
+                "# TYPE ipt_rollout_shadow_mirrored_total counter",
+                "ipt_rollout_shadow_mirrored_total %d"
+                % st["shadow"]["mirrored"],
+                "# TYPE ipt_rollout_shadow_dropped_total counter",
+                "ipt_rollout_shadow_dropped_total %d"
+                % st["shadow"]["dropped"],
+                "# TYPE ipt_rollout_rollbacks_total counter",
+                "ipt_rollout_rollbacks_total %d" % st["rollbacks"],
+                "# TYPE ipt_rollout_promotions_total counter",
+                "ipt_rollout_promotions_total %d" % st["promotions"],
+            ]
+            lines.append("# TYPE ipt_rollout_diff_total counter")
+            lines += bounded_counter_series(
+                "ipt_rollout_diff_total", "kind", st["diff"])
+            lines.append("# TYPE ipt_swap_rejected_total counter")
+            lines += bounded_counter_series(
+                "ipt_swap_rejected_total", "reason", st["swap_rejected"])
         # stage-level latency attribution: one Prometheus
         # histogram per pipeline stage, so p50/p99 per stage are
         # scrapeable without external tooling (the reference gets this
@@ -936,10 +984,16 @@ class ServeLoop:
         if path.startswith("/debug/kernels"):
             # each scan kernel's launches in this process by (B, L,
             # carried) with the work their lengths asked for: what a
-            # card run re-times at the serve path's own shapes
+            # card run re-times at the serve path's own shapes.  The
+            # serving cycles' launches (both generations during a
+            # canary); ?scope=rollout: the rollout's admission and
+            # shadow launches instead
+            from urllib.parse import parse_qs, urlsplit
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            scope = (q.get("scope") or [SERVE_SCOPE])[0]
             return ("200 OK", "application/json", json.dumps({
-                k.name: {"launches": k.launches,
-                         "shapes": k.shape_snapshot()}
+                k.name: {"launches": k.scope_launches(scope),
+                         "shapes": k.shape_snapshot(scope)}
                 for k in (PAIR_SCAN, STEP_SCAN)}).encode())
         if path.startswith("/debug/slow"):
             # the K slowest requests since startup: full span breakdown,
@@ -1011,6 +1065,16 @@ class ServeLoop:
             except ValueError:
                 n = 0
             rs = pipeline.rule_stats
+            if (q.get("format") or [""])[0] == "profile":
+                # MeasuredProfile export (docs/RETUNE.md): the content-
+                # hashed telemetry artifact a retune feeds back into the
+                # compiler — canonical bytes, so the hash an operator
+                # records here matches the pack provenance
+                from ingress_plus_tpu_torch.compiler.profile import (
+                    MeasuredProfile)
+                prof = MeasuredProfile.from_rule_stats(rs)
+                return ("200 OK", "application/json",
+                        prof.to_json().encode())
             cache = getattr(pipeline, "confirm_cache", None)
             body = {
                 "version": rs.version,
@@ -1067,15 +1131,24 @@ class ServeLoop:
             return "200 OK", "application/json", json.dumps(
                 {"tenants": 1 if tm is None else int(tm.shape[0])}).encode()
         if path.startswith("/configuration/ruleset") and method == "POST":
-            # ruleset delivery (sync-node† analog).  No guarded rollout
-            # is ported, so the only semantics is the one-shot swap of
-            # ?mode=force (the default), and an explicit ?mode=staged is
-            # a 409 — the JAX server without a rollout controller.
+            # ruleset delivery (sync-node† analog).  With a rollout
+            # controller attached (the served default) the pack goes
+            # through the GUARDED staged rollout — admission gate →
+            # shadow → canary ramp → LIVE (docs/ROBUSTNESS.md);
+            # ?mode=force keeps the one-shot swap for break-glass (and
+            # is the only semantics when no controller is attached).
             from urllib.parse import parse_qs, urlsplit
-            from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
+            from ingress_plus_tpu_torch.compiler.ruleset import (
+                CompiledRuleset,
+            )
+            from ingress_plus_tpu_torch.control.rollout import (
+                RolloutRejected,
+            )
 
+            ro = self.batcher.rollout
             q = parse_qs(urlsplit(path).query, keep_blank_values=True)
-            swap_mode = (q.get("mode") or ["force"])[0]
+            swap_mode = (q.get("mode")
+                         or ["staged" if ro is not None else "force"])[0]
             if swap_mode not in ("staged", "force"):
                 return ("400 Bad Request", "application/json",
                         json.dumps({"error": "mode must be staged|force"}
@@ -1091,32 +1164,60 @@ class ServeLoop:
                     json.JSONDecodeError) as e:
                 return ("400 Bad Request", "application/json",
                         json.dumps({"error": str(e)}).encode())
-            if swap_mode == "staged":
+            if swap_mode == "staged" and ro is None:
                 # an EXPLICIT staged request must never silently get the
                 # ungated one-shot swap it asked to avoid
                 return ("409 Conflict", "application/json",
                         json.dumps({"error": "staged rollout unavailable:"
                                     " no rollout controller attached "
                                     "(use ?mode=force)"}).encode())
+            if swap_mode == "staged":
+                # per-rollout knob overrides ride the push payload;
+                # validated inside admit() AFTER the in-progress check —
+                # a rejected concurrent push must not touch the active
+                # rollout's config
+                overrides = {k: spec[k]
+                             for k in ("steps", "step_min_requests",
+                                       "shadow_min_requests",
+                                       "shadow_sample") if k in spec}
+
+                def _admit():
+                    return ro.admit(artifact_path=art, paranoia_level=pl,
+                                    overrides=overrides)
+
+                try:
+                    report = await loop.run_in_executor(None, _admit)
+                except RolloutRejected as e:
+                    # a rejected pack changed NOTHING: structured 4xx
+                    # (stage, reason, artifact) + ipt_swap_rejected_total
+                    return ("422 Unprocessable Entity", "application/json",
+                            json.dumps({"rejected": True,
+                                        **e.report}).encode())
+                except (OSError, ValueError, TypeError) as e:
+                    return ("400 Bad Request", "application/json",
+                            json.dumps({"error": str(e)}).encode())
+                return "200 OK", "application/json", json.dumps(
+                    {"staged": True, **report}).encode()
 
             # force / break-glass: the one-shot swap.  A corrupt or
             # unloadable checkpoint is a structured 4xx rejection (stage
-            # "load"), not a generic executor 500
+            # "load"), not a generic executor 500, and counts in
+            # ipt_swap_rejected_total{reason="load"}
             def _load_and_swap():
                 try:
                     cr = CompiledRuleset.load(art)
                 except Exception as e:
-                    raise _LoadRejected(
-                        {"stage": "load", "reason": "load",
-                         "artifact": art,
-                         "detail": {"error": "%s: %s"
-                                    % (type(e).__name__, e)}})
+                    raise RolloutRejected(
+                        "load", "load", art,
+                        {"error": "%s: %s" % (type(e).__name__, e)})
                 self.batcher.swap_ruleset(cr, paranoia_level=pl)
                 return cr
 
             try:
                 cr = await loop.run_in_executor(None, _load_and_swap)
-            except _LoadRejected as e:
+            except RolloutRejected as e:
+                if ro is not None:
+                    ro.count_rejected("load")
                 return ("400 Bad Request", "application/json",
                         json.dumps({"rejected": True,
                                     **e.report}).encode())
@@ -1127,6 +1228,30 @@ class ServeLoop:
             return "200 OK", "application/json", json.dumps(
                 {"ruleset": cr.version, "rules": cr.n_rules,
                  "mode": "force"}).encode()
+        if path.startswith("/rollout"):
+            # guarded-rollout status / control (docs/ROBUSTNESS.md):
+            # GET = full state-machine status; POST {"action":"abort"}
+            # rolls an in-flight rollout back to the incumbent
+            ro = self.batcher.rollout
+            if ro is None:
+                return ("200 OK", "application/json",
+                        json.dumps({"enabled": False}).encode())
+            if method == "POST":
+                try:
+                    spec = json.loads(payload or b"{}")
+                    action = spec.get("action")
+                    if action != "abort":
+                        raise ValueError("action must be 'abort'")
+                except (ValueError, TypeError, AttributeError,
+                        json.JSONDecodeError) as e:
+                    return ("400 Bad Request", "application/json",
+                            json.dumps({"error": str(e)}).encode())
+                aborted = await loop.run_in_executor(
+                    None, lambda: ro.abort("manual"))
+                return ("200 OK", "application/json", json.dumps(
+                    {"aborted": aborted, **ro.status()}).encode())
+            return ("200 OK", "application/json", json.dumps(
+                {"enabled": True, **ro.status()}).encode())
         if path == "/configuration/acl" and method == "POST":
             # wallarm-acl push (no-reload lane): {"acls": {name: {allow:
             # [cidr], deny: [...], greylist: [...]}}, "tenant_acl":
@@ -1210,17 +1335,8 @@ class ServeLoop:
         self.batcher.close()
 
 
-class _LoadRejected(Exception):
-    """An unloadable ruleset checkpoint on ``/configuration/ruleset``:
-    nothing changed; ``report`` is the structured 4xx body (stage,
-    reason, artifact, detail)."""
-
-    def __init__(self, report: dict):
-        super().__init__(report["reason"])
-        self.report = report
-
-
 def build_default_batcher(mode: str = "block",
+                          rules_dir: Optional[str] = None,
                           max_batch: int = 256,
                           max_delay_s: float = 0.0005,
                           warmup: bool = True,
@@ -1230,6 +1346,9 @@ def build_default_batcher(mode: str = "block",
                           hang_budget_s: float = 30.0,
                           breaker_failures: int = 3,
                           breaker_cooldown_s: float = 5.0,
+                          lkg_dir: Optional[str] = None,
+                          rollout_steps=None,
+                          rollout_fail_on: str = "error",
                           n_lanes: int = 1,
                           confirm_workers: int = 1,
                           confirm_cache_entries: int = 0,
@@ -1237,8 +1356,12 @@ def build_default_batcher(mode: str = "block",
                           tenant_weights: Optional[str] = None,
                           tenant_guard: str = "prefilter_only",
                           platform: str = "cuda") -> Batcher:
-    """The serving batcher on the committed bundled pack.
+    """The serving batcher, with its guarded-rollout controller.
 
+    The pack: the last-known-good from ``lkg_dir`` when there is one
+    (the last pack that survived traffic — crash-during-rollout
+    recovery); else ``rules_dir`` compiled by the port's compiler (a
+    tree that does not compile raises); else the committed bundled pack.
     ``platform`` picks the torch device (``cuda``: the card, where the
     engine builds and loads both scan kernels before anything else;
     ``cpu``: the plain scan).  ``scan_impl`` "auto" is the device's
@@ -1249,6 +1372,11 @@ def build_default_batcher(mode: str = "block",
     current."""
     import os
 
+    from ingress_plus_tpu_torch.control.rollout import (
+        RolloutConfig,
+        RolloutController,
+        load_lkg,
+    )
     from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
     from ingress_plus_tpu_torch.models.tenant_guard import (
         parse_tenant_weights,
@@ -1257,7 +1385,30 @@ def build_default_batcher(mode: str = "block",
     from ingress_plus_tpu_torch.weights import load_pack
 
     device = resolve_device(platform)
-    cr = load_pack()
+    # crash recovery (docs/ROBUSTNESS.md "Guarded rollout"): prefer the
+    # last-known-good artifact over a possibly mid-rollout rules source.
+    # A missing or corrupt LKG falls back to the configured source.
+    cr = load_lkg(lkg_dir) if lkg_dir else None
+    if cr is not None:
+        print("startup: serving last-known-good pack %s from %s"
+              % (cr.version, lkg_dir), file=sys.stderr)
+    elif rules_dir:
+        from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
+        from ingress_plus_tpu_torch.compiler.seclang import load_seclang_dir
+
+        if not Path(rules_dir).exists():
+            raise ValueError("--rules-dir %s does not exist" % rules_dir)
+        t0 = time.time()
+        try:
+            cr = compile_ruleset(load_seclang_dir(rules_dir))
+        except Exception as e:
+            raise ValueError("--rules-dir %s does not compile: %s: %s"
+                             % (rules_dir, type(e).__name__, e)) from e
+        print("rules: compiled %s in %.1fs (%d rules, W=%d, version %s)"
+              % (rules_dir, time.time() - t0, cr.n_rules,
+                 cr.tables.n_words, cr.version), file=sys.stderr)
+    else:
+        cr = load_pack()
     if n_lanes == 0:   # --lanes auto: one lane per local device
         n_lanes = (max(1, torch.cuda.device_count())
                    if device.type == "cuda" else 1)
@@ -1313,6 +1464,12 @@ def build_default_batcher(mode: str = "block",
             batcher.warm_lanes()
         print("warmup: %d lane(s) warmed in %.1fs"
               % (n_lanes, time.time() - t0), file=sys.stderr)
+    # guarded-rollout controller: idle until an admit; makes STAGED the
+    # default semantics of /configuration/ruleset on this server
+    cfg = RolloutConfig(fail_on=rollout_fail_on, lkg_dir=lkg_dir)
+    if rollout_steps:
+        cfg.steps = tuple(rollout_steps)
+    batcher.rollout = RolloutController(batcher, cfg)
     return batcher
 
 
@@ -1389,6 +1546,11 @@ def main(argv=None) -> None:
     ap.add_argument("--http-port", type=int, default=9901)
     ap.add_argument("--mode", default="block",
                     choices=["off", "monitoring", "safe_blocking", "block"])
+    ap.add_argument("--rules-dir", default=None,
+                    help="SecLang rules tree to compile and serve (the "
+                         "port's compiler); a tree that does not compile "
+                         "fails startup.  Default: the committed bundled "
+                         "pack")
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--max-delay-us", type=int, default=500)
     ap.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
@@ -1491,6 +1653,21 @@ def main(argv=None) -> None:
                          "prefilter-only (degraded, never blocks) or "
                          "shed fail-open; 'off' disables quarantining "
                          "(fair admission still applies)")
+    # guarded ruleset rollout (docs/ROBUSTNESS.md "Guarded rollout")
+    ap.add_argument("--lkg-dir", default=None,
+                    help="last-known-good pack directory: packs that "
+                         "reach LIVE are persisted here atomically, and "
+                         "startup prefers this artifact over "
+                         "--rules-dir (crash-during-rollout recovery)")
+    ap.add_argument("--rollout-steps", default="0.01,0.1,0.5,1.0",
+                    help="canary ramp fractions for staged ruleset "
+                         "rollouts (comma-separated, ending at 1.0)")
+    ap.add_argument("--rollout-fail-on", default="error",
+                    choices=["error", "warning", "notice", "info"],
+                    help="admission static-gate severity: a candidate "
+                         "pack with unsuppressed findings at or above "
+                         "this level is rejected before touching "
+                         "traffic")
     ap.add_argument("--faults", default=None,
                     help="deterministic fault plan, e.g. "
                          "'dispatch_hang:after=100,times=1,delay_s=5'; "
@@ -1524,7 +1701,8 @@ def main(argv=None) -> None:
 
     try:
         batcher = build_default_batcher(
-            mode=args.mode, max_batch=args.max_batch,
+            mode=args.mode, rules_dir=args.rules_dir,
+            max_batch=args.max_batch,
             max_delay_s=args.max_delay_us / 1e6, warmup=not args.no_warmup,
             scan_impl=args.scan_impl,
             queue_cap=args.queue_cap,
@@ -1532,6 +1710,10 @@ def main(argv=None) -> None:
             hang_budget_s=args.hang_budget_ms / 1e3,
             breaker_failures=args.breaker_failures,
             breaker_cooldown_s=args.breaker_cooldown_s,
+            lkg_dir=args.lkg_dir,
+            rollout_steps=[float(s) for s in
+                           args.rollout_steps.split(",") if s.strip()],
+            rollout_fail_on=args.rollout_fail_on,
             n_lanes=_parse_lanes(args.lanes),
             confirm_workers=_parse_confirm_workers(args.confirm_workers),
             confirm_cache_entries=max(0, args.confirm_cache),
@@ -1541,7 +1723,8 @@ def main(argv=None) -> None:
             platform=args.platform)
     except (RuntimeError, ValueError) as e:
         # no card, an impl the device cannot run, a kernel that does
-        # not build or load: refuse to start, never fall back
+        # not build or load, a rules tree that does not compile:
+        # refuse to start, never fall back
         raise SystemExit("ingress_plus_tpu_torch.serve: startup failed: %s"
                          % e)
 

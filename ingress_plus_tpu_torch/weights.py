@@ -1,9 +1,10 @@
 """Carrying the model across: packs and tables from the JAX package.
 
 A pack is the JAX package's checkpoint format (``<path>.npz`` +
-``<path>.json``, written by its ``CompiledRuleset.save``).  The bundled
-OWASP-CRS-shaped pack is committed in ``packs/crs_bundled``; regenerate
-it from the repository root with the JAX package's compiler:
+``<path>.json``, written by its ``CompiledRuleset.save``, and by the
+port's, which compiles the same pack).  The bundled OWASP-CRS-shaped pack
+is committed in ``packs/crs_bundled``; regenerate it from the repository
+root with the JAX package's compiler (the port's gives the same arrays):
 
     JAX_PLATFORMS=cpu python -c "from ingress_plus_tpu.compiler import compile_ruleset; from ingress_plus_tpu.compiler.sigpack import load_bundled_rules, RULES_DIR; compile_ruleset(load_bundled_rules(), base_path=RULES_DIR / 'crs').save('ingress_plus_tpu_torch/packs/crs_bundled')"
 """

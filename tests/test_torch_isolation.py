@@ -224,3 +224,46 @@ def test_serve_subprocess_answers_a_frame_with_jax_absent(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=20)
+
+
+_ROLLOUT_CHILD = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None
+import ingress_plus_tpu_torch.analysis
+import ingress_plus_tpu_torch.compiler.profile
+import ingress_plus_tpu_torch.utils.benign_fixtures
+from ingress_plus_tpu_torch.compiler import compile_ruleset
+from ingress_plus_tpu_torch.compiler.seclang import parse_seclang
+from ingress_plus_tpu_torch.control.rollout import (
+    _DRILL_CANDIDATE, _DRILL_INCUMBENT, RolloutConfig, RolloutController)
+from ingress_plus_tpu_torch.utils.faults import _mk_batcher
+inc = compile_ruleset(parse_seclang(_DRILL_INCUMBENT))
+cand = compile_ruleset(parse_seclang(_DRILL_CANDIDATE))
+b = _mk_batcher(cr=inc, device="cpu")
+ro = RolloutController(b, RolloutConfig(corpus_n=32))
+b.rollout = ro
+report = ro.admit(ruleset=cand)
+b.close()
+print(json.dumps({
+    "state": report["state"], "new_fns": report["replay"]["new_fns"],
+    "rules": [inc.n_rules, cand.n_rules],
+    "modules": sorted(m for m in sys.modules
+                      if (m == "ingress_plus_tpu"
+                          or m.startswith("ingress_plus_tpu.")
+                          or m.split(".")[0] == "jax")
+                      and sys.modules[m] is not None)}))
+"""
+
+
+def test_compiler_and_rollout_admit_with_jax_absent():
+    """The compiler, the analyzers and a rollout admission import and
+    run with jax and the JAX package unimportable."""
+    proc = subprocess.run([sys.executable, "-c", _ROLLOUT_CHILD],
+                          cwd=str(REPO), env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"state": "shadow", "new_fns": 0, "rules": [2, 3],
+                   "modules": []}
