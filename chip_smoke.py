@@ -43,7 +43,10 @@ Phases (any failure ends the run with a non-zero exit code):
    one whole-row call).  Match and state must be bit-identical.
 5. The batch path on ``scan_impl="pallas"`` (the step kernel) over the
    requests of phase 3: verdicts identical to phase 3's CPU pipeline, one
-   launch per bucket, each launch re-run on its bucket and timed.
+   launch per bucket, each launch re-run on its bucket and timed.  Then
+   ``scan_impl="take"`` on the card (the step kernel again) over phase
+   3's first 512 requests: verdicts identical to phase 3's CPU verdicts,
+   one step-kernel launch per bucket, no pair-kernel launch.
 6. The stream lane: seven concurrent 1 MiB streams
    (``utils/stream_corpus.py``: benign form text, SQLi across a 64 KiB
    boundary, a split %-escape, a gzip body with an attack at its inflated
@@ -57,7 +60,8 @@ Phases (any failure ends the run with a non-zero exit code):
    defaults as a child process (platform cuda, scan impl auto =
    ``pallas3``, one inline confirm worker, warmup on); once ``/readyz``
    answers, phase 3's requests over the UDS wire protocol on several
-   pipelined connections (``serve/client.py``), twice (two waves), then
+   pipelined connections (``serve/client.py``), then the first 512 of them
+   again (the second wave), then
    the response-leak body as a response-scan frame and the other six
    phase 6 bodies as chunked streams.  Every response must equal phase
    3's CPU pipeline verdict (for the bodies the Batcher reroutes to the
@@ -70,7 +74,7 @@ Phases (any failure ends the run with a non-zero exit code):
    (``/debug/kernels``: (B, L, carried), launches, the work their
    lengths asked for, the latest launch's lengths) are read just before
    and just after the drive; their difference is this path's launches.
-   Then the same two waves to a second server with ``--confirm-workers
+   Then the same waves to a second server with ``--confirm-workers
    auto`` (the pooled confirm against the inline walk, one interpreter
    lock either way).  Prints wire req/s, client-side p50/p99, the
    server's stage breakdown, the confirm workers and the streamed MB/s.
@@ -109,6 +113,32 @@ Phases (any failure ends the run with a non-zero exit code):
     every ported scenario ``ok`` with the card's invariants (breaker-open
     batches fail open, none blocks, nothing moves to the host); one line
     per scenario.
+11. The post plane and the learned scoring head on the card.  The
+    feature export (``utils/export_corpus.build_feature_dataset``, n=2048,
+    the bundled rules, the benign fixtures) on the card and, in a child
+    process (``chip_smoke.py --features-cpu-reference``), on the CPU:
+    ``x``, ``x_candidates``, ``y`` and ``rule_ids`` byte-identical.  Head
+    1 trained (``learn/train.py``) on the card's features, its
+    fingerprint equal to the head trained on the CPU's; head 2 with
+    another calibration margin.  One server with the post plane
+    (``--spool-dir``, ``--export-url`` to an HTTP collector in this
+    script, ``--export-interval-s 0.5``, brute/dirbust thresholds 8/12),
+    ``--artifact-dir``, ``--lkg-dir`` and ``--scoring-head`` head 1: a wave
+    of phase 3's requests (without the rerouted bodies), the benign
+    fixtures, a login flood and a wordlist sweep, every wire verdict the
+    CPU pipeline's under head 1, ``ipt_scorer_diff_total`` its
+    ``scorer_diff``; the collector's and the spool's attack records
+    (folded by tenant, client, class) and the ``/wallarm-status``
+    counters equal to a CPU ``PostChannel`` fed the same (request,
+    verdict) pairs, one brute event for the flood's client and one
+    dirbust event for the sweep's; the served rules plus the operator's
+    rule file saved into ``--artifact-dir`` is staged by the
+    ``RulesetWatcher`` and aborted; head 2 staged over ``POST
+    /configuration/scoring`` to live under waves, every wire verdict one
+    head's CPU verdict and the wave after live head 2's; the scorer LKG
+    equal to the CPU ``persist_lkg_scorer`` of head 2 (``.json`` and
+    pointer bytes, equal arrays); every phase 8 health counter 0.  The
+    server's launches re-timed at their shapes on the bundled tables.
 7. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
@@ -180,6 +210,10 @@ STREAM_CHUNK = 64 << 10     # the chunk an oversized body is fed in
 SERVE_CONNECTIONS = 4
 SERVE_WINDOW = 8
 SERVE_START_S = 420
+#: phase 8's second wave: the first this many of phase 3's requests
+SECOND_WAVE = 512
+#: phase 5: the requests the ``take`` pipeline runs (phase 3's first)
+TAKE_REQUESTS = 512
 #: every series of these must read 0 after phase 8
 SERVE_ZERO = ("ipt_breaker_trips_total", "ipt_cpu_fallback_batches_total",
               "ipt_breaker_fail_open_batches_total",
@@ -215,8 +249,12 @@ SecRule REQUEST_URI "@beginsWith /graphql" \
 """
 
 
+#: the run's start, for the seconds every log line carries
+T0 = time.perf_counter()
+
+
 def log(*a) -> None:
-    print(*a, flush=True)
+    print("[%7.1fs]" % (time.perf_counter() - T0), *a, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -665,11 +703,8 @@ def phase_pipeline(cr, dev: torch.device):
         PipelineStats,
     )
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
-    from ingress_plus_tpu_torch.serve.normalize import Request
-    from ingress_plus_tpu_torch.utils.corpus import generate_corpus
 
-    requests = [lr.request for lr in generate_corpus(n=2048, seed=SEED)]
-    requests += large_body_requests(Request)
+    requests = phase3_requests()
     gpu = DetectionPipeline(cr, device=dev, fail_open=False)
     cpu = DetectionPipeline(cr, device="cpu", fail_open=False)
     if dev.type == "cuda" and gpu.engine.scan_impl != "pallas3":
@@ -986,7 +1021,44 @@ def phase_pallas_pipeline(cr, dev: torch.device, requests, want) -> dict:
     res["retimed"] = retime_launches(
         "pallas path", StepScanner(tables), STEP_SCAN,
         lambda t, n: scan_bytes(tables, t, n), tables, inputs, dev, "step")
+    res["take"] = take_pipeline(cr, dev, requests[:TAKE_REQUESTS],
+                                want[:TAKE_REQUESTS])
     return res
+
+
+def take_pipeline(cr, dev: torch.device, requests, want) -> dict:
+    """The batch path on ``scan_impl="take"``: on a card the step kernel
+    (``StepScanner``), as ``pallas`` runs it.  Its verdicts must equal
+    phase 3's CPU verdicts; the step kernel launches once per bucket and
+    the pair kernel not at all."""
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
+
+    gpu = DetectionPipeline(cr, device=dev, scan_impl="take",
+                            fail_open=False)
+    if gpu.engine.scanner_for() is None:
+        raise SystemExit("take on cuda has no kernel scanner")
+    STEP_SCAN.launches = 0                       # count this path only
+    pair0 = PAIR_SCAN.launches
+    t0 = time.perf_counter()
+    got = run_pipeline(gpu, requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = STEP_SCAN.launches
+    check_verdicts("take pipeline", got, want)
+    buckets = len(bucket_inputs(gpu, requests))
+    if launches <= 0 or launches != buckets:
+        raise SystemExit("the take pipeline launched the step kernel %d "
+                         "times for %d buckets" % (launches, buckets))
+    if PAIR_SCAN.launches != pair0:
+        raise SystemExit("the take pipeline launched the pair kernel")
+    log("take pipeline: %d requests, identical verdicts to the cpu "
+        "pipeline, %d step-kernel launches (= buckets), no pair-kernel "
+        "launch; %.1f req/s (host clock, confirm included)"
+        % (len(requests), launches, len(requests) / wall))
+    return {"requests": len(requests), "identical_verdicts": len(requests),
+            "launches": launches, "wall_s": wall}
 
 
 def phase_stream(cr, dev: torch.device) -> tuple:
@@ -1469,8 +1541,9 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
                              "cuda and scan impl auto = pallas3" % path)
         shapes0 = kernel_shapes(srv)
         launches0 = kernel_launches(srv.metrics())
-        waves = [request_wave(srv.sock, requests, [want])
-                 for _ in range(2)]
+        waves = [request_wave(srv.sock, requests, [want]),
+                 request_wave(srv.sock, requests[:SECOND_WAVE],
+                              [want[:SECOND_WAVE]])]
         # the phase 6 bodies: the response leak as one response-scan
         # frame (rerouted to the stream lane), the others chunked
         sid = 100000
@@ -1513,8 +1586,9 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     shapes = shape_delta(shapes0, shapes1)
     workers = int(metric_values(metrics, "ipt_confirm_workers")[0][1])
     with ServeChild("--confirm-workers", "auto") as pooled:
-        auto_waves = [request_wave(pooled.sock, requests, [want])
-                      for _ in range(2)]
+        auto_waves = [request_wave(pooled.sock, requests, [want]),
+                      request_wave(pooled.sock, requests[:SECOND_WAVE],
+                                   [want[:SECOND_WAVE]])]
         auto_metrics = pooled.metrics()
     check_serve_metrics("--confirm-workers auto", auto_metrics)
     wire = sum(len(c.body) for c in cases)
@@ -1553,9 +1627,10 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     return res, shapes, traffic_pool(requests, cases)
 
 
-def phase_serve_kernels(tables, shapes, pool, dev: torch.device) -> dict:
-    """Both kernels at the serve path's own shapes (phase 8's
-    ``shape_delta``): the pair kernel as ``pallas3`` runs it
+def phase_serve_kernels(tables, shapes, pool, dev: torch.device,
+                        label: str = "serve") -> dict:
+    """Both kernels at a server's own shapes (``shape_delta``; phase 8's,
+    phase 11's): the pair kernel as ``pallas3`` runs it
     (``ByteScanner``), the step kernel as the stream lane does."""
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
     from ingress_plus_tpu_torch.ops.scan import scan_bytes, scan_pairs
@@ -1563,11 +1638,11 @@ def phase_serve_kernels(tables, shapes, pool, dev: torch.device) -> dict:
 
     return {
         "pair_scan": retime_shapes(
-            "serve pair", ByteScanner(tables), PAIR_SCAN,
+            label + " pair", ByteScanner(tables), PAIR_SCAN,
             lambda t, n, *c: scan_pairs(tables, t, n, *c), tables,
             shapes["pair_scan"], pool, dev, "pair"),
         "step_scan": retime_shapes(
-            "serve step", StepScanner(tables), STEP_SCAN,
+            label + " step", StepScanner(tables), STEP_SCAN,
             lambda t, n, *c: scan_bytes(tables, t, n, *c), tables,
             shapes["step_scan"], pool, dev, "step")}
 
@@ -2010,6 +2085,499 @@ def phase_rollout_timing(packs, shapes, pool, dev: torch.device) -> dict:
             shapes.get("step_scan", []), pool, dev, "step")}
 
 
+# ------------------------------------------------- phase 11: post + head
+
+#: phase 11: the post plane's knobs on the server (the export cadence and
+#: the rate detectors' thresholds), and the staged head's calibration
+#: margin (head 1 keeps the trainer's default, 1e-4).  A margin of 0.1
+#: lowers the threshold past four benign large-body requests of the wave
+#: (learned score 3.7907 against head 1's 3.7960), and the rollout's
+#: verdict-diff gate rolls such a head back, as it should
+POST_ARGS = ("--export-interval-s", "0.5", "--brute-threshold", "8",
+             "--dirbust-threshold", "12")
+HEAD2_MARGIN = 1e-3
+#: the clients of the login flood and the wordlist sweep
+FLOOD_CLIENT = "203.0.113.77"
+SWEEP_CLIENT = "198.51.100.9"
+
+
+def phase3_requests() -> list:
+    """Phase 3's requests: the seeded corpus plus the large bodies."""
+    from ingress_plus_tpu_torch.serve.normalize import Request
+    from ingress_plus_tpu_torch.utils.corpus import generate_corpus
+
+    requests = [lr.request for lr in generate_corpus(n=2048, seed=SEED)]
+    return requests + large_body_requests(Request)
+
+
+def post_traffic(requests) -> tuple:
+    """Phase 11's wave: ``requests`` without the bodies the Batcher
+    reroutes to the stream lane (``calm``), then the benign fixtures
+    (where a head changes verdicts), the login flood and the sweep.
+    Returns (traffic, number of calm requests)."""
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+    from ingress_plus_tpu_torch.serve.normalize import Request
+    from ingress_plus_tpu_torch.utils.benign_fixtures import fixture_requests
+
+    plan_of = SimpleNamespace(OVERSIZE_THRESHOLD=Batcher.OVERSIZE_THRESHOLD)
+    calm = [r for r in requests if Batcher._reroute_plan(plan_of, r) is None]
+    return calm + fixture_requests() + rate_requests(Request), len(calm)
+
+
+def post_cpu_reference(out: str, n: int) -> int:
+    """Phase 11's CPU side, in a child process beside the card work: the
+    feature export on the CPU (saved at ``out``-features), heads 1 and 2
+    trained on it, both heads' CPU pipeline verdict keys and
+    ``scorer_diff`` over the wave, a CPU ``PostChannel`` fed the wave's
+    (request, head 1 verdict) pairs (its folded export and status), and
+    ``persist_lkg_scorer`` of head 2 (at ``out``-lkg).  Prints it as
+    JSON."""
+    from ingress_plus_tpu_torch.learn.head import persist_lkg_scorer
+    from ingress_plus_tpu_torch.learn.train import (
+        TrainConfig,
+        train_from_dataset,
+    )
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.post import PostChannel
+    from ingress_plus_tpu_torch.post.brute import BruteConfig
+    from ingress_plus_tpu_torch.serve.protocol import (
+        decode_request,
+        encode_request,
+    )
+    from ingress_plus_tpu_torch.utils.export_corpus import (
+        build_feature_dataset,
+    )
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    ds = build_feature_dataset(n=n, device="cpu")
+    ds.save(out + "-features")
+    features_s = time.perf_counter() - t0
+    heads = {"head1": train_from_dataset(ds),
+             "head2": train_from_dataset(ds, TrainConfig(margin=HEAD2_MARGIN))}
+    traffic, n_calm = post_traffic(phase3_requests())
+    cr = load_pack()
+    res = {"features_s": features_s, "n_calm": n_calm,
+           "versions": {k: h.version for k, h in heads.items()}}
+    verdicts = {}
+    for name, h in heads.items():
+        cpu = DetectionPipeline(cr, device="cpu", fail_open=False,
+                                scoring_head=h)
+        verdicts[name] = run_pipeline(cpu, traffic)
+        res[name] = {"keys": [verdict_key(v) for v in verdicts[name]],
+                     "scorer_diff": dict(cpu.stats.scorer_diff)}
+    # the post channel, each request as the server decodes it off the
+    # wire (its id is the wire id, as request_wave numbers them)
+    spool = tempfile.mkdtemp(prefix="ipt-post-cpu")
+    try:
+        channel = PostChannel(spool_dir=spool, brute_config=BruteConfig(
+            threshold=8, dirbust_threshold=12))
+        for i, (r, v) in enumerate(zip(traffic, verdicts["head1"])):
+            _, mode, wire = decode_request(
+                encode_request(r, i + 1, mode=2)[8:])
+            wire.mode = mode
+            channel.record(wire, v)
+        channel.exporter.flush_once()
+        res["attacks"] = attack_totals(spooled(spool))
+        res["status"] = channel.status()
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+    persist_lkg_scorer(heads["head2"], out + "-lkg")
+    res["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def rate_requests(Request) -> list:
+    """A login flood (12 clean credential posts from one client) and a
+    wordlist sweep (15 distinct paths from another), shaped like
+    ``tests/test_brute_e2e.py``'s."""
+    out = []
+    for i in range(12):
+        body = b"user=admin&pass=hunter%d" % i
+        out.append(Request(
+            method="POST", uri="/account/login",
+            headers={"host": "shop.example.com",
+                     "x-real-ip": FLOOD_CLIENT,
+                     "content-type": "application/x-www-form-urlencoded",
+                     "content-length": str(len(body))},
+            body=body, request_id="flood-%d" % i))
+    for i in range(15):
+        out.append(Request(
+            uri="/backup/%02d/config.old" % i,
+            headers={"host": "shop.example.com",
+                     "x-real-ip": SWEEP_CLIENT},
+            request_id="sweep-%d" % i))
+    return out
+
+
+class Sink:
+    """An HTTP collector on a free local port: keeps every record the
+    exporter POSTs."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        self.records: list = []
+        sink = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                sink.records.extend(json.loads(body))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"ok")
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.url = "http://127.0.0.1:%d/collect" % self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def attack_totals(records) -> dict:
+    """Exported attack records folded by (tenant, client, class): the
+    counts and blocked counts summed, the max score kept.  The exporter
+    aggregates each drain on its own, so one key may span records (how
+    many depends on arrival, and is not kept)."""
+    out: dict = {}
+    for r in records:
+        k = "%s|%s|%s" % (r["tenant"], r["client"], r["class"])
+        t = out.setdefault(k, {"count": 0, "blocked": 0, "max_score": 0})
+        t["count"] += r["count"]
+        t["blocked"] += r["blocked"]
+        t["max_score"] = max(t["max_score"], r["max_score"])
+    return out
+
+
+def spooled(spool: str) -> list:
+    out = []
+    for name in sorted(os.listdir(spool)):
+        if name.startswith("attacks") and name.endswith(".jsonl"):
+            with open(os.path.join(spool, name)) as f:
+                out += [json.loads(line) for line in f if line.strip()]
+    return out
+
+
+#: the /wallarm-status counters held against the CPU channel (the queue,
+#: the exporter's own tallies, the order-dependent top-k sketch and the
+#: clock are not)
+STATUS_COUNTERS = ("requests", "attacks", "blocked", "monitored",
+                   "fail_open", "by_class", "by_tenant", "shed_by_tenant",
+                   "degraded_by_tenant")
+
+
+def lkg_files(d: str, version: str) -> tuple:
+    """A scorer LKG's pointer and ``.json`` bytes and its arrays."""
+    from ingress_plus_tpu_torch.learn.head import SCORER_LKG_POINTER
+
+    with open(os.path.join(d, SCORER_LKG_POINTER), "rb") as f:
+        ptr = f.read()
+    with open(os.path.join(d, "scorer-%s.json" % version), "rb") as f:
+        meta = f.read()
+    with np.load(os.path.join(d, "scorer-%s.npz" % version)) as z:
+        arrays = {k: z[k] for k in z.files}
+    return ptr, meta, arrays
+
+
+def phase_post_scoring(requests, smi: str, dev: torch.device,
+                       server_args=(), n_features: int = 2048) -> tuple:
+    """Phase 11: the post plane and the learned scoring head on the card
+    (see the module docstring).  ``requests`` are phase 3's (the CPU
+    child rebuilds them); ``server_args`` are added to the server's
+    command line.  Returns the result and the server's launches by
+    kernel and shape."""
+    root = tempfile.mkdtemp(prefix="ipt-post")
+    try:
+        return _phase_post_scoring(root, requests, smi, dev,
+                                   tuple(server_args), n_features)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_post_scoring(root, requests, smi, dev, server_args, n_features):
+    from ingress_plus_tpu_torch.compiler import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.seclang import parse_seclang
+    from ingress_plus_tpu_torch.compiler.sigpack import load_bundled_rules
+    from ingress_plus_tpu_torch.learn.train import (
+        TrainConfig,
+        train_from_dataset,
+    )
+    from ingress_plus_tpu_torch.utils.export_corpus import (
+        build_feature_dataset,
+    )
+
+    t_phase = time.perf_counter()
+    res = {"card": smi}
+    traffic, n_calm = post_traffic(requests)
+    calm = traffic[:n_calm]
+    # 1. the CPU side in a child (features, heads, references), beside
+    # the card's feature export, the heads and the server's startup
+    ref_base = os.path.join(root, "cpu")
+    child = subprocess.Popen(
+        [sys.executable, __file__, "--post-cpu-reference", ref_base,
+         str(n_features)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        ds = build_feature_dataset(n=n_features, device=dev)
+        res["features_card_s"] = time.perf_counter() - t0
+        head1 = train_from_dataset(ds)
+        head2 = train_from_dataset(ds, TrainConfig(margin=HEAD2_MARGIN))
+        if head2.version == head1.version:
+            raise SystemExit("post: head 2 equals head 1")
+        head_paths = {}
+        for name, h in (("head1", head1), ("head2", head2)):
+            head_paths[name] = os.path.join(root, name)
+            h.save(head_paths[name])
+        # the pack the watcher will push: the served rules plus the
+        # operator's rule file
+        t0 = time.perf_counter()
+        grow = compile_ruleset(load_bundled_rules()
+                               + parse_seclang(OPERATOR_RULES))
+        res["grow_compile_s"] = time.perf_counter() - t0
+        spool = os.path.join(root, "spool")
+        artifacts = os.path.join(root, "artifacts")
+        lkg = os.path.join(root, "lkg")
+        os.makedirs(artifacts)
+        sink = Sink()
+        try:
+            with ServeChild("--spool-dir", spool, "--export-url", sink.url,
+                            *POST_ARGS, "--artifact-dir", artifacts,
+                            "--lkg-dir", lkg, "--scoring-head",
+                            head_paths["head1"], *server_args) as srv:
+                out, err = child.communicate(timeout=900)
+                if child.returncode != 0:
+                    raise SystemExit("post: the cpu reference failed:\n"
+                                     + err[-4000:])
+                ref = json.loads(out.strip().splitlines()[-1])
+                _post_serve(res, srv, sink, ds, ref, ref_base, traffic, calm,
+                            (head1, head2), head_paths, grow, spool,
+                            artifacts, root)
+                metrics = srv.metrics()
+                shapes = res.pop("_shapes")
+            check_serve_metrics("post plane and scoring head", metrics)
+        finally:
+            sink.close()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    res["export_delivered"] = metric_values(
+        metrics, "ipt_post_attacks_exported_total")[0][1]
+    res["export_errors"] = metric_values(
+        metrics, "ipt_post_export_errors_total")[0][1]
+    if res["export_errors"]:
+        raise SystemExit("post: %d export errors" % res["export_errors"])
+    # the scorer LKG the promote wrote: the CPU persist's files
+    got = lkg_files(lkg, head2.version)
+    want = lkg_files(ref_base + "-lkg", head2.version)
+    if got[0] != want[0] or got[1] != want[1] or \
+            sorted(got[2]) != sorted(want[2]) or any(
+                got[2][k].dtype != want[2][k].dtype
+                or not np.array_equal(got[2][k], want[2][k])
+                for k in want[2]):
+        raise SystemExit("post: the scorer LKG differs from the cpu "
+                         "persist_lkg_scorer of head 2")
+    res["seconds"] = time.perf_counter() - t_phase
+    w, a = res["wave"], res["after"]
+    log("post plane and scoring head: features card == cpu (%d rows x %d "
+        "rules; card %.1fs, cpu %.1fs), head fingerprints equal (%s, %s); "
+        "head 1 flips %s; %d wire verdicts equal the cpu pipeline's under "
+        "head 1, %.1f req/s p50 %.2f ms p99 %.2f ms; export equal to the "
+        "cpu channel's (%d keys, %d records, rate events %s; delivered %d, "
+        "errors %d); watcher staged grow %s %.1fs after the save "
+        "(admission %s s), aborted; head 2 admitted (%s s) and live in "
+        "%.1fs over %d waves; after live %.1f req/s p50 %.2f ms p99 %.2f "
+        "ms; scorer LKG equal to the cpu's; launches %s; %.1fs; %s"
+        % (ds.n, ds.n_features, res["features_card_s"],
+           res["features_cpu_s"], head1.version, head2.version,
+           json.dumps(res["scorer_flips"]), len(traffic),
+           w["wire_req_per_s"], w["p50_ms"], w["p99_ms"],
+           res["export"]["keys"], res["export"]["records"],
+           json.dumps(res["export"]["rate_events"]),
+           res["export_delivered"], res["export_errors"], grow.version,
+           res["watcher"]["staged_after_s"],
+           json.dumps(res["watcher"]["admission_s"]),
+           json.dumps(res["head2_admission_s"]),
+           res["head2_admit_to_live_s"], len(res["head2_waves"]),
+           a["wire_req_per_s"], a["p50_ms"], a["p99_ms"],
+           json.dumps(res["launches"]), res["seconds"], smi))
+    return res, shapes
+
+
+def _post_serve(res, srv, sink, ds, ref, ref_base, traffic, calm, heads,
+                head_paths, grow, spool, artifacts, root) -> None:
+    """Phase 11 against its running server (steps 1-7 of the module
+    docstring's phase 11, after the startup); fills ``res``."""
+    from ingress_plus_tpu_torch.learn.features import FeatureDataset
+
+    head1, head2 = heads
+    res["startup_s"] = srv.startup_s
+    res["features_cpu_s"] = ref["features_s"]
+    cpu_ds = FeatureDataset.load(ref_base + "-features")
+    for k in ("x", "x_candidates", "y", "rule_ids"):
+        a, b = getattr(ds, k), getattr(cpu_ds, k)
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                a.tobytes() != b.tobytes():
+            raise SystemExit("post: the card's feature export differs from "
+                             "the cpu's in %s" % k)
+    if ref["versions"] != {"head1": head1.version, "head2": head2.version}:
+        raise SystemExit("post: heads trained on the card's features %s "
+                         "differ from the cpu's %s"
+                         % ([head1.version, head2.version], ref["versions"]))
+    if ref["n_calm"] != len(calm):
+        raise SystemExit("post: the cpu reference's wave differs")
+    res["features"] = {"rows": ds.n, "rules": ds.n_features,
+                       "attacks": int(ds.y.sum()),
+                       "confirmed_bits": int(ds.x.sum()),
+                       "candidate_bits": int(ds.x_candidates.sum()),
+                       "fingerprint": ds.fingerprint()}
+    res["heads"] = {n: {"version": h.version, "threshold": h.threshold,
+                        "baseline": h.provenance["baseline"]["learned"]}
+                    for n, h in (("head1", head1), ("head2", head2))}
+    res["head_flips_head1_vs_head2"] = sum(
+        a != b for a, b in zip(ref["head1"]["keys"], ref["head2"]["keys"]))
+    if res["head_flips_head1_vs_head2"]:
+        raise SystemExit("post: head 2 changes %d verdicts of the wave; the "
+                         "rollout's verdict-diff gate would roll it back"
+                         % res["head_flips_head1_vs_head2"])
+    sc = json.loads(srv.get("/scoring")[1])
+    if not sc["active"] or sc["head"]["version"] != head1.version:
+        raise SystemExit("post: the server does not serve head 1: %s" % sc)
+    serve0, ro0 = kernel_shapes(srv), kernel_shapes(srv, "rollout")
+    # 4. the wave: every wire verdict the CPU's under head 1
+    res["wave"] = request_wave(srv.sock, traffic, [ref["head1"]["keys"]])
+    diff = {lab: v for lab, v in metric_values(
+        srv.metrics(), "ipt_scorer_diff_total")}
+    want_diff = {'{kind="%s"}' % k: float(v)
+                 for k, v in ref["head1"]["scorer_diff"].items()}
+    if diff != want_diff:
+        raise SystemExit("post: ipt_scorer_diff_total %s, the cpu "
+                         "pipeline's scorer_diff %s" % (diff, want_diff))
+    res["scorer_flips"] = ref["head1"]["scorer_diff"]
+    # 6 (started now, checked after 5): the watcher's push
+    t_push = time.perf_counter()
+    grow.save(os.path.join(root, "grow"))
+    for ext in (".npz", ".json"):       # the JSON lands last
+        shutil.copy(os.path.join(root, "grow" + ext),
+                    os.path.join(artifacts, "grow" + ext))
+    # 5. the export, against the CPU channel
+    want_attacks = ref["attacks"]
+    deadline = time.perf_counter() + 15
+    while True:
+        got_sink = attack_totals(sink.records)
+        got_spool = attack_totals(spooled(spool))
+        if got_sink == want_attacks == got_spool:
+            break
+        if time.perf_counter() > deadline:
+            bad = {k: (got_sink.get(k), got_spool.get(k), w)
+                   for k, w in want_attacks.items()
+                   if not got_sink.get(k) == got_spool.get(k) == w}
+            bad.update({k: (v, "not exported by the cpu channel")
+                        for k, v in got_sink.items()
+                        if k not in want_attacks})
+            raise SystemExit("post: the export differs from the cpu "
+                             "channel's: %s" % json.dumps(bad)[:4000])
+        time.sleep(0.25)
+    for cls, client in (("brute", FLOOD_CLIENT), ("dirbust", SWEEP_CLIENT)):
+        n = sum(1 for r in sink.records
+                if r["class"] == cls and r["client"] == client)
+        if n != 1:
+            raise SystemExit("post: %d %s events for %s, want 1"
+                             % (n, cls, client))
+    status = json.loads(srv.get("/wallarm-status")[1])
+    want_status = ref["status"]
+    for k in STATUS_COUNTERS:
+        if status[k] != want_status[k]:
+            raise SystemExit("post: /wallarm-status %s %s, the cpu "
+                             "channel's %s" % (k, status[k], want_status[k]))
+    rate = {k: v for k, v in status["export_events"].items()
+            if k.split(":")[0] in ("brute", "dirbust")}
+    want_rate = {k: v for k, v in want_status["export_events"].items()
+                 if k.split(":")[0] in ("brute", "dirbust")}
+    if rate != want_rate:
+        raise SystemExit("post: /wallarm-status rate events %s, the cpu "
+                         "channel's %s" % (rate, want_rate))
+    res["export"] = {"keys": len(want_attacks), "records": len(sink.records),
+                     "rate_events": rate,
+                     "status": {k: status[k] for k in (
+                         "requests", "attacks", "blocked")}}
+    # 6. the watcher's push lands: grow staged, then aborted
+    deadline = time.perf_counter() + 40
+    while True:
+        st = http_json(srv.port, "GET", "/rollout")[1]
+        if st["candidate"] == grow.version and st["state"] in (
+                "admitted", "shadow", "canary"):
+            break
+        if st["state"] == "rejected" or time.perf_counter() > deadline:
+            raise SystemExit("post: the watcher's push of %s did not "
+                             "stage: %s" % (grow.version, st))
+        time.sleep(0.25)
+    res["watcher"] = {"staged_after_s": time.perf_counter() - t_push,
+                      "state": st["state"], "admission_s": st["admission_s"],
+                      "replay": st["last_admission"]["replay"]}
+    status, body = http_json(srv.port, "POST", "/rollout",
+                             {"action": "abort"})
+    if not body.get("aborted") or body["state"] != "rolled_back":
+        raise SystemExit("post: abort of the watcher's push failed: %s"
+                         % body)
+    # 7. head 2, staged to live under waves
+    calm_keys = {n: ref[n]["keys"][:len(calm)] for n in ("head1", "head2")}
+    status, rep = http_json(srv.port, "POST", "/configuration/scoring",
+                            {"path": head_paths["head2"], **ROLLOUT_KNOBS})
+    if status != 200 or not rep.get("staged"):
+        raise SystemExit("post: head 2 was not admitted: %d %s"
+                         % (status, rep))
+    st = http_json(srv.port, "GET", "/rollout")[1]
+    res["head2_admission_s"] = st["admission_s"]
+    res["head2_replay"] = rep["replay"]
+    waves, st = drive_until(srv, calm,
+                            [calm_keys["head1"], calm_keys["head2"]],
+                            ("live", "rolled_back", "rejected"))
+    if st["state"] != "live":
+        m = srv.metrics()
+        raise SystemExit("post: head 2 ended %s (%s; diff %s, shadow %s, "
+                         "candidate requests %d; ladder %s, degraded %s)"
+                         % (st["state"], st["rollback_reason"], st["diff"],
+                            st["shadow"], st["candidate_requests"],
+                            metric_values(m, "ipt_degraded_mode"),
+                            metric_values(m, "ipt_degraded_verdicts_total")))
+    res["head2_waves"] = waves
+    res["head2_rollout"] = {k: st[k] for k in (
+        "candidate_requests", "shadow", "diff", "promotions")}
+    res["head2_admit_to_live_s"] = (event_time(st, "live")
+                                    - event_time(st, "admitted"))
+    sc = json.loads(srv.get("/scoring")[1])
+    if sc["head"]["version"] != head2.version:
+        raise SystemExit("post: live, but /scoring serves %s"
+                         % sc["head"]["version"])
+    res["after"] = request_wave(srv.sock, traffic, [ref["head2"]["keys"]])
+    serve1, ro1 = kernel_shapes(srv), kernel_shapes(srv, "rollout")
+    res["_shapes"] = merge_shapes(shape_delta(serve0, serve1),
+                                  shape_delta(ro0, ro1))
+    res["launches"] = {
+        "serve_scope": {k: serve1[k]["launches"] - serve0[k]["launches"]
+                        for k in serve1},
+        "rollout_scope": {k: ro1[k]["launches"] - ro0[k]["launches"]
+                          for k in ro1}}
+    if res["launches"]["serve_scope"]["pair_scan"] <= 0:
+        raise SystemExit("post: the server never launched the pair kernel")
+
+
 def phase_fault_matrix(dev: torch.device) -> dict:
     """Phase 10: every ported fault scenario on a batcher on the card,
     with the card's invariants (breaker-open batches fail open; nothing
@@ -2041,6 +2609,8 @@ def phase_fault_matrix(dev: torch.device) -> dict:
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
+    if sys.argv[1:2] == ["--post-cpu-reference"]:
+        return post_cpu_reference(sys.argv[2], int(sys.argv[3]))
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
         print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
@@ -2101,6 +2671,10 @@ def main() -> int:
     rollout_k = phase_rollout_timing(rollout_packs, rollout_shapes, pool,
                                      dev)
     fault_matrix = phase_fault_matrix(dev)
+    post, post_shapes = phase_post_scoring(requests, smi, dev)
+    log("post " + json.dumps(post, default=str))
+    post_k = phase_serve_kernels(kern["tables"], post_shapes, pool, dev,
+                                 "post")
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -2110,7 +2684,8 @@ def main() -> int:
         "sweep": sweep, "step_scan": step, "pallas_pipeline": pallas,
         "stream": stream, "serve": serve, "serve_kernels": serve_k,
         "rollout": rollout, "rollout_kernels": rollout_k,
-        "fault_matrix": fault_matrix, "sass": sass,
+        "fault_matrix": fault_matrix, "post": post, "post_kernels": post_k,
+        "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -2186,7 +2761,27 @@ def main() -> int:
                                          "canary's batches on pallas3"),
                            ("step_scan", "the rerouted body before and "
                                          "after the rollout"))]
-    print(json.dumps({"kernels": serve_entries + rollout_entries + [entry(
+    post_entries = [entry(
+        name, "post plane and scoring head (phase 11): %s" % what,
+        post_k[name]["total"], post_k[name]["total"]["max_abs_err"],
+        parity="bit-identical match and state at each of the phase 11 "
+               "server's %d (B, L, carried) shapes on the bundled tables"
+               % len(post_k[name]["shapes"]),
+        shape="the phase 11 server's %d launches (serving cycles under "
+              "both heads: %d; the watcher's and head 2's admission and "
+              "shadow work: %d), each shape's device time once per launch "
+              "of it, on the bundled pack's tables"
+              % (post_k[name]["total"]["launches"],
+                 post["launches"]["serve_scope"][name],
+                 post["launches"]["rollout_scope"][name]),
+        segments=segment_rows("post path", post_k[name]["shapes"].values()))
+        for name, what in (("pair_scan", "batches on pallas3 under a "
+                                         "learned head, admissions and "
+                                         "shadow scans"),
+                           ("step_scan", "carried scans of the admissions"))
+        if post_k[name]["total"]["launches"]]
+    print(json.dumps({"kernels": serve_entries + rollout_entries
+                      + post_entries + [entry(
         "pair_scan", "library: pallas3 batch path (phase 3)", tot,
         max(s[c]["max_abs_err"] for s in kern["shapes"]
             for c in ("raw_byte", "class_id")),
@@ -2203,7 +2798,8 @@ def main() -> int:
                      "(phases 5, 6)", step_tot,
         max(s["max_abs_err"] for s in step["shapes"]),
         launches_by_path={"stream": stream["launches"],
-                          "pallas_batch": pallas["launches"]},
+                          "pallas_batch": pallas["launches"],
+                          "take_batch": pallas["take"]["launches"]},
         parity="bit-identical match and state: B=%d x L in %s, B=%d x L in "
                "%s split and unsplit; edges %s; chained carry %s; every "
                "stream wave and pallas bucket"

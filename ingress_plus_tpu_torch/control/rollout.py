@@ -58,8 +58,10 @@ down with it.
   fallback).
 
 On a card the replay and the shadow lane scan on the CANDIDATE's own
-kernels: ``detect_strict`` through the live impl's kernel on the
-candidate's tables (``detect_cpu_only`` refuses a card pipeline).  The
+kernels: the prefilter through the live impl's kernel on the
+candidate's tables, then the full confirm (``detect_cpu_only`` refuses
+a card pipeline); the shadow's scan ignores the serving brownout ladder,
+as ``detect_cpu_only`` does on the CPU (``_shadow_scan``).  The
 replay's incumbent twin gets an engine of its own
 (``live.engine.rebuilt``), so admission shares no engine, scanner, CUDA
 stream or launch tally with the serving lane; the admission thread and
@@ -73,8 +75,9 @@ on both sides, the twin sharing the live engine).
 Break-glass: ``/configuration/ruleset?mode=force`` keeps the old
 one-shot semantics (an active rollout is aborted first).
 ``run_swap_drill()`` drives the three canonical rollouts on a batcher.
-Not ported: the learned scoring head's staged admission
-(``admit_scoring``) — the port has no scoring head.
+A learned scoring head rolls out through the same stages
+(``admit_scoring``): its candidate is the live pack with the new head
+bound, and a promoted head becomes the scorer LKG (``LKG_SCORER``).
 """
 
 from __future__ import annotations
@@ -163,6 +166,10 @@ class RolloutConfig:
     max_diff_frac: float = 0.02
     #: mirrored verdicts required before the diff fraction can trigger
     diff_min_compared: int = 50
+    #: scoring-head admission: minimum fraction of the head's rule-id
+    #: map found in the live pack (a head trained against a different
+    #: pack generation scores with silently-missing features below this)
+    scorer_min_coverage: float = 0.90
     #: last-known-good artifact directory (None disables persistence)
     lkg_dir: Optional[str] = None
 
@@ -264,6 +271,22 @@ def load_lkg(lkg_dir: str | Path) -> Optional[CompiledRuleset]:
 # ------------------------------------------------------- the controller
 
 
+def _shadow_scan(cand, request, on_card: bool):
+    """The candidate's full verdict on one mirrored request.  On a card:
+    the prefilter on the candidate's own kernels, then the full confirm
+    — whatever the serving brownout ladder's level (the candidate shares
+    the incumbent's controller, and a degraded or failed-open candidate
+    verdict diffed against a full incumbent one would read as
+    divergence).  The CPU path, ``detect_cpu_only``, ignores the ladder
+    too.  The CPU budget is spent on the host clock around the call."""
+    if not on_card:
+        return cand.detect_cpu_only([request])[0]
+    t0 = time.perf_counter()
+    cand.stats.requests += 1
+    cand.stats.batches += 1
+    return cand.finalize([request], cand.prefilter([request]), t0)[0]
+
+
 class RolloutController:
     """Owns the staged rollout state machine; attached to a Batcher as
     ``batcher.rollout``.  The batcher's dispatch thread consults only
@@ -284,14 +307,17 @@ class RolloutController:
         self.state = IDLE
         self.candidate = None            # DetectionPipeline | None
         self.candidate_version = ""
-        #: what kind of artifact is rolling out ("ruleset": the only
-        #: kind the port rolls out)
+        #: what kind of artifact is rolling out: "ruleset" | "scorer"
         self.candidate_kind = ""
-        #: the candidate pipeline's generation tag — what its verdicts
-        #: are stamped with; the mirror's self-diff skip keys on THIS
+        #: the candidate pipeline's generation tag (ruleset version, or
+        #: ruleset+head for a scoring rollout) — what its verdicts are
+        #: stamped with; the mirror's self-diff skip keys on THIS, not
+        #: on candidate_version (a scoring candidate's version is the
+        #: head's, but its verdicts carry the combined tag)
         self.candidate_generation = ""
         self.candidate_artifact = ""     # source path ("" = in-memory)
         self._candidate_cr = None        # CompiledRuleset for LKG persist
+        self._candidate_head = None      # ScoringHead for scorer LKG
         self.step_idx = 0
         self.step_served = 0
         self.started_at = 0.0
@@ -374,6 +400,7 @@ class RolloutController:
             self.candidate.confirm_cache.invalidate("rollback")
         self.candidate = None
         self._candidate_cr = None
+        self._candidate_head = None
 
     # -------------------------------------------------------- admission
 
@@ -478,15 +505,18 @@ class RolloutController:
         return t1
 
     def _enter_admitted(self, candidate, version: str, kind: str,
-                        report: dict, cr=None) -> None:
-        """The ADMITTED-state install: every per-rollout counter and
-        baseline resets in ONE place under the lock, then the shadow
-        lane opens."""
+                        report: dict, cr=None, head=None) -> None:
+        """Shared ADMITTED-state install for both artifact kinds
+        (ruleset packs and scoring heads): every per-rollout counter
+        and baseline resets in ONE place under the lock, then the
+        shadow lane opens — a counter added for one kind can never
+        leak stale values into the other's next rollout."""
         live = self.batcher.pipeline
         with self._lock:
             self.state = ADMITTED
             self.candidate = candidate
             self._candidate_cr = cr
+            self._candidate_head = head
             self.candidate_version = version
             self.candidate_kind = kind
             self.candidate_generation = candidate.generation_tag
@@ -579,6 +609,10 @@ class RolloutController:
             acl_store=live.acl_store,
             tenant_acl=dict(live.tenant_acl),
             default_acl=live.default_acl,
+            # an installed learned head rides a ruleset rollout (rule-id
+            # remap re-binds it to the candidate pack's axis) — a pack
+            # promote must not silently drop the scoring model
+            scoring_head=live.scoring_head,
             engine=live.engine.rebuilt(ruleset))
         # tenant (EP) rule subsets re-derived against the CANDIDATE's
         # rule axis (the same derivation a promote/swap runs)
@@ -617,6 +651,10 @@ class RolloutController:
         twin = DetectionPipeline(
             live.ruleset, mode="block",
             anomaly_threshold=live.anomaly_threshold,
+            # the twin IS the incumbent scorer: a scoring-head rollout
+            # diffs learned-vs-learned (or learned-vs-fixed) exactly as
+            # live traffic would see it
+            scoring_head=live.scoring_head,
             engine=(live.engine.rebuilt(live.ruleset) if on_card
                     else live.engine))
         # the card path scans through the prefilter (the twin's and the
@@ -667,6 +705,154 @@ class RolloutController:
             "benign_new_blocks": len(benign_new_blocks),
             "benign_new_block_ids": benign_new_blocks[:8],
         }
+
+    # ------------------------------------------- scoring-head admission
+
+    def admit_scoring(self, artifact_path: Optional[str] = None,
+                      head=None, overrides: Optional[dict] = None) -> dict:
+        """Admission gate for a LEARNED SCORING HEAD artifact
+        (docs/LEARNED_SCORING.md): same staged machinery as a ruleset
+        rollout — the candidate generation is the live pack with the
+        new head bound, so shadow diffing, the canary ramp, every
+        rollback trigger, and LKG recovery apply unchanged.  Stages:
+
+        1. load    — artifact parse + content-hash verification
+                     (ScoringHead.load rejects corrupt/tampered files)
+        2. schema  — shape/finiteness validation + already-live check
+        3. coverage— rule-id-map coverage against the LIVE pack
+                     (``scorer_min_coverage``)
+        4. compile — candidate pipeline build (same pack: on the CPU
+                     it shares the live engine, on a card it gets an
+                     engine of its own) + smoke detect
+        5. replay  — golden-corpus diff vs the INCUMBENT scorer
+                     (zero-new-FN / zero-new-benign-block defaults)
+
+        On a card every stage that scans runs on the admission thread's
+        device context (``_admission_device``) and the candidate's own
+        kernels, as a pack admission does.
+        """
+        if head is None and artifact_path is None:
+            raise ValueError("admit_scoring() needs an artifact path "
+                             "or a ScoringHead")
+        overrides = validate_overrides(overrides or {})
+        with self._lock:
+            if self.state in (SHADOW, CANARY) or self._admitting:
+                raise RolloutRejected(
+                    "admission", "rollout_in_progress",
+                    str(artifact_path or ""),
+                    {"active_candidate": self.candidate_version})
+            self._admitting = True
+            from dataclasses import replace as _dc_replace
+            self.config = _dc_replace(self._base_config, **overrides)
+        try:
+            with self._admission_device():
+                return self._admit_scoring_inner(artifact_path, head)
+        finally:
+            with self._lock:
+                self._admitting = False
+
+    def _admit_scoring_inner(self, artifact_path, head) -> dict:
+        from ingress_plus_tpu_torch.learn.head import (
+            LearnedScorer,
+            ScoringHead,
+        )
+
+        with self._lock:
+            self.candidate_artifact = str(artifact_path or "")
+            self.admission_seconds = {}
+        t0 = time.perf_counter()
+        # stage 1: load (content hash verified inside load) -----------------
+        if head is None:
+            try:
+                head = ScoringHead.load(artifact_path)
+            except Exception as e:
+                self._reject("load", "scorer_load",
+                             {"error": "%s: %s" % (type(e).__name__, e)})
+        # stage 2: schema + already-live -------------------------------------
+        try:
+            head.validate()
+        except ValueError as e:
+            self._reject("schema", "scorer_schema", {"error": str(e)})
+        live = self.batcher.pipeline
+        if live.scoring_head is not None \
+                and head.version == live.scoring_head.version:
+            self._reject("load", "already_live",
+                         {"version": head.version})
+        t0 = self._stage_time("load", t0)
+        # stage 3: rule-id-map coverage against the live pack ----------------
+        scorer = LearnedScorer(head, live.ruleset)
+        if scorer.coverage < self.config.scorer_min_coverage:
+            self._reject("coverage", "scorer_coverage", {
+                "coverage": round(scorer.coverage, 4),
+                "required": self.config.scorer_min_coverage,
+                "ruleset": live.ruleset.version})
+        t0 = self._stage_time("coverage", t0)
+        # stage 4: candidate build + smoke -----------------------------------
+        try:
+            candidate = self._build_scoring_candidate(head)
+        except Exception as e:
+            self._reject("compile", "compile_smoke",
+                         {"error": "%s: %s" % (type(e).__name__, e)})
+        t0 = self._stage_time("compile", t0)
+        # stage 5: golden-corpus replay vs the incumbent scorer --------------
+        replay = self._replay_diff(live, candidate)
+        self._stage_time("replay", t0)
+        if replay["new_fns"] > self.config.max_new_fn:
+            self._reject("replay", "new_fns", replay)
+        if replay["benign_new_blocks"] > self.config.max_new_benign_blocks:
+            self._reject("replay", "benign_blocks", replay)
+        candidate.reset_detection_observations()
+        candidate.stats = live.stats
+        candidate.load_controller = live.load_controller
+        report = {
+            "state": SHADOW,
+            "kind": "scorer",
+            "candidate": head.version,
+            "incumbent": live.generation_tag,
+            "artifact": self.candidate_artifact,
+            "coverage": round(scorer.coverage, 4),
+            "threshold": round(float(head.threshold), 6),
+            "replay": replay,
+        }
+        self._enter_admitted(candidate, head.version, "scorer",
+                             report, head=head)
+        self._event("admitted", candidate=head.version,
+                    rollout_kind="scorer")
+        return report
+
+    def _build_scoring_candidate(self, head):
+        """Candidate pipeline for a scoring rollout: the LIVE pack with
+        the new head bound.  A scorer changes only the host finalize
+        step, so the seen-shape sets are adopted from the incumbent:
+        candidate dispatches must not book phantom recompiles in the
+        efficiency gauges.  On a CPU pipeline the engine is SHARED (same
+        ruleset, same tables); on a card the candidate scans on an
+        engine of its own (``live.engine.rebuilt``: its tables and
+        scanner), never the serving lane's."""
+        from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+        from ingress_plus_tpu_torch.utils.corpus import generate_corpus
+
+        live = self.batcher.pipeline
+        candidate = DetectionPipeline(
+            live.ruleset, mode=live.mode,
+            anomaly_threshold=live.anomaly_threshold,
+            fail_open=live.fail_open,
+            acl_store=live.acl_store,
+            tenant_acl=dict(live.tenant_acl),
+            default_acl=live.default_acl,
+            engine=(live.engine if self.batcher._cpu_fallback_ok(live)
+                    else live.engine.rebuilt(live.ruleset)),
+            scoring_head=head)
+        candidate.tenant_rule_mask = live.tenant_rule_mask
+        candidate.seen_shapes = set(live.seen_shapes)
+        candidate.seen_lane_shapes = set(live.seen_lane_shapes)
+        candidate._seen_exec = set(live._seen_exec)
+        smoke = [lr.request for lr in generate_corpus(n=4, seed=7)]
+        verdicts = candidate.detect_strict(smoke)
+        if len(verdicts) != len(smoke):
+            raise RuntimeError("smoke detect returned %d verdicts for %d "
+                               "requests" % (len(verdicts), len(smoke)))
+        return candidate
 
     # ----------------------------------------------------- shadow phase
 
@@ -757,11 +943,7 @@ class RolloutController:
                         self.diff["new_block"] += 1
                         self.shadow_compared += 1
                 else:
-                    # the candidate's own kernels on a card (the CPU
-                    # budget above is spent on the host clock around the
-                    # whole call); the CPU confirm lane otherwise
-                    cv = (cand.detect_strict([request])[0] if on_card
-                          else cand.detect_cpu_only([request])[0])
+                    cv = _shadow_scan(cand, request, on_card)
                     self._diff_verdicts(live_v, cv)
             except Exception:
                 with self._lock:
@@ -936,6 +1118,7 @@ class RolloutController:
         with self._lock:
             self.promotions += 1
             cr, self._candidate_cr = self._candidate_cr, None
+            head, self._candidate_head = self._candidate_head, None
             self.candidate = None
         self._event("live", candidate=self.candidate_version,
                     rollout_kind=self.candidate_kind)
@@ -945,6 +1128,14 @@ class RolloutController:
                 self._event("lkg_persisted", version=cr.version)
             except OSError as e:
                 # LKG is recovery insurance, not a serving dependency
+                self._event("lkg_persist_failed", error=str(e))
+        if self.config.lkg_dir and head is not None:
+            from ingress_plus_tpu_torch.learn.head import persist_lkg_scorer
+
+            try:
+                persist_lkg_scorer(head, self.config.lkg_dir)
+                self._event("scorer_lkg_persisted", version=head.version)
+            except OSError as e:
                 self._event("lkg_persist_failed", error=str(e))
 
     def rollback(self, reason: str) -> None:

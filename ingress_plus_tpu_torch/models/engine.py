@@ -45,6 +45,7 @@ from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
 from ingress_plus_tpu_torch.ops.scan import (
     ScanTables,
     from_numpy_u32,
+    scan_bytes,
     scan_pairs,
     to_numpy_u32,
 )
@@ -297,13 +298,16 @@ class DetectionEngine:
       (the default on ``cuda``);
     * ``"pallas2"`` — the same kernel, class-id configuration;
     * ``"pallas"`` — the CUDA per-byte step-scan kernel (one step per
-      byte, exact state), the stream lane's scan.
+      byte, exact state), the stream lane's scan;
+    * ``"take"`` — the per-byte scan on either device: the plain
+      PyTorch ``scan_bytes`` on a CPU device, the step-scan kernel on a
+      CUDA device (as ``"pair"`` and ``"pallas3"`` pair up).
 
     A kernel implementation on a CPU device raises, as does ``"pair"``
     on a CUDA device.  ``scan_impl`` may be reassigned (the serve CLI's
     ``--scan-impl`` does); the same rule is checked then."""
 
-    SCAN_IMPLS = ("pair", "pallas", "pallas2", "pallas3")
+    SCAN_IMPLS = ("pair", "take", "pallas", "pallas2", "pallas3")
 
     def __init__(self, cr: CompiledRuleset, scan_impl: Optional[str] = None,
                  device: DeviceLike = None):
@@ -336,6 +340,8 @@ class DetectionEngine:
         if impl not in cls.SCAN_IMPLS:
             raise ValueError("unknown scan_impl %r (one of %s)"
                              % (impl, ", ".join(cls.SCAN_IMPLS)))
+        if impl == "take":
+            return
         if (impl == "pair") != (device.type == "cpu"):
             raise ValueError(
                 "scan_impl %r cannot run on a %s device: the kernel "
@@ -380,10 +386,17 @@ class DetectionEngine:
             self._device_tables[device] = pair
         return pair
 
+    def _kernel_scanner_cls(self):
+        """The live impl's kernel scanner class; None for a plain scan
+        (``pair``, and ``take`` on a CPU device)."""
+        if self.scan_impl == "take":
+            return StepScanner if self.device.type == "cuda" else None
+        return KERNEL_SCANNERS.get(self.scan_impl)
+
     def scanner_for(self, device: Optional[torch.device] = None):
         """The live impl's kernel scanner on ``device`` (built once per
-        impl, card and generation); None for the plain ``pair`` scan."""
-        cls = KERNEL_SCANNERS.get(self.scan_impl)
+        impl, card and generation); None for a plain scan."""
+        cls = self._kernel_scanner_cls()
         if cls is None:
             return None
         dev = self.device if device is None else torch.device(device)
@@ -401,7 +414,7 @@ class DetectionEngine:
         executables, so shapes are not part of a key."""
         dev = str(self.device if device is None else torch.device(device))
         keys = (("tables", dev),)
-        if self.scan_impl in KERNEL_SCANNERS:
+        if self._kernel_scanner_cls() is not None:
             keys += (("kernel", self.scan_impl, dev),)
         return keys
 
@@ -441,7 +454,8 @@ class DetectionEngine:
         """True iff a head-only dispatch would use the sliced tables: the
         pack is word-tiered AND the impl honors the slice (the kernel
         impls scan the full tables)."""
-        return self.head_tables is not None and self.scan_impl == "pair"
+        return (self.head_tables is not None
+                and self._kernel_scanner_cls() is None)
 
     def _scan(self, tabs: EngineTables, tok: torch.Tensor,
               ln: torch.Tensor, device: Optional[torch.device] = None
@@ -452,6 +466,8 @@ class DetectionEngine:
         scanner = self.scanner_for(device)
         if scanner is not None:
             m, _ = scanner(tok, ln)
+        elif self.scan_impl == "take":
+            m, _ = scan_bytes(tabs.scan, tok, ln.to(tok.device))
         else:
             m, _ = scan_pairs(tabs.scan, tok, ln.to(tok.device))
         return m

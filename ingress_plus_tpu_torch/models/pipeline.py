@@ -14,9 +14,9 @@ The serve plane's parts are here: the brownout ladder
 (:class:`LoadController`), the serve-lane launch/collect split, the
 pooled confirm workers and the cross-cycle verdict cache
 (``models/confirm_plane.py``), RuleStats telemetry, the fault-injection
-sites, and the breaker-open CPU-only path (CPU pipelines only).  Not
-ported here: the learned scoring head (``set_scoring_head``; ``scorer``
-stays None and the generation tag is the ruleset version).
+sites, the breaker-open CPU-only path (CPU pipelines only), and the
+learned scoring head (``scoring_head=``, ``set_scoring_head``; the
+learned margin is a host numpy dot, ``learn/head.py``).
 """
 
 from __future__ import annotations
@@ -92,8 +92,9 @@ class Verdict:
     #: fail-open/shed verdicts no generation ever scanned.
     generation: str = ""
     elapsed_us: int = 0
-    #: learned-head margin when a scoring head is installed; always
-    #: None here (the learned scoring head is not ported)
+    #: learned-head margin when a scoring head is installed (the fixed
+    #: CRS anomaly sum stays in ``score`` either way — live divergence
+    #: between the two scorers is observable per verdict)
     learned_score: Optional[float] = None
     #: matched points for the attack export (wallarm "points" analog):
     #: up to 8 dicts {rule_id, var, value} — var is the SecLang variable
@@ -143,9 +144,10 @@ class PipelineStats:
     engine_compiles: int = 0
     bucket_rows: Dict[int, int] = field(default_factory=dict)
     bucket_padded_rows: Dict[int, int] = field(default_factory=dict)
-    #: learned-vs-fixed verdict divergence, keyed by direction —
-    #: /metrics ipt_scorer_diff_total{kind=}; stays empty while no
-    #: learned scoring head exists
+    #: learned-vs-fixed verdict divergence, keyed by direction
+    #: ("learned_flag" = head flags where fixed wouldn't,
+    #: "learned_pass" = head passes where fixed would flag) —
+    #: /metrics ipt_scorer_diff_total{kind=}, /scoring
     scorer_diff: Dict[str, int] = field(default_factory=dict)
     # confirm plane (docs/CONFIRM_PLANE.md): wedged confirm-worker
     # shares failed open within the pool's hang budget, and the
@@ -368,6 +370,7 @@ class DetectionPipeline:
         confirm_memo_entries: int = 4096,
         confirm_cache_entries: int = 0,
         device: DeviceLike = None,
+        scoring_head=None,
     ):
         # ``device`` None = the CUDA card; ``scan_impl`` None = the
         # device's default (pallas3 on cuda, pair on cpu).  ``engine``:
@@ -377,8 +380,12 @@ class DetectionPipeline:
                        else DetectionEngine(ruleset, scan_impl=scan_impl,
                                             device=device))
         self.mode = mode
-        # the learned scoring head is not ported: fixed CRS weights
-        self.scoring_head = None
+        # learned scoring lane (docs/LEARNED_SCORING.md):
+        # ``scoring_head`` is the portable rule-id-keyed artifact;
+        # _install binds it to THIS pack's rule axis (and re-binds on
+        # every swap — the remap is how a trained head survives a
+        # ruleset rollout).  None = fixed CRS weights, the default.
+        self.scoring_head = scoring_head
         self.scorer = None
         # wallarm-acl enforcement: hot-swappable store + per-tenant ACL
         # binding (the annotation is per-Ingress = per-tenant);
@@ -441,9 +448,22 @@ class DetectionPipeline:
 
     def _install(self, ruleset: CompiledRuleset, paranoia_level: int) -> None:
         self.ruleset = ruleset
-        # the generation stamp verdicts carry: the ruleset version (a
-        # learned scorer would extend it; none is ported)
-        self.generation_tag = ruleset.version
+        # bind the learned head to this generation's rule axis (rule-id
+        # remap — the sigpack row order changed; the CRS ids did not)
+        if self.scoring_head is not None:
+            from ingress_plus_tpu_torch.learn.head import LearnedScorer
+
+            self.scorer = LearnedScorer(self.scoring_head, ruleset)
+        else:
+            self.scorer = None
+        # the generation stamp verdicts carry: the ruleset version alone
+        # when scoring is fixed-weight, ruleset+head when a learned
+        # scorer is installed — a scoring-head rollout is a generation
+        # change even though the pack is identical (the rollout
+        # machinery's exactly-one-generation invariant rides this)
+        self.generation_tag = (
+            ruleset.version if self.scorer is None
+            else "%s+%s" % (ruleset.version, self.scorer.version))
         self.confirms = [ConfirmRule(m.confirm) for m in ruleset.rules]
         # detection-plane telemetry keyed by THIS generation's rule axis
         # (a swap starts fresh counters; the old ones freeze for drift)
@@ -514,6 +534,23 @@ class DetectionPipeline:
         # key), but they are dead weight — drop them at the boundary
         if self.confirm_cache is not None:
             self.confirm_cache.invalidate("swap_ruleset")
+
+    def set_scoring_head(self, head) -> None:
+        """Install (or with ``None`` clear) a learned scoring head on
+        the live generation — same pack, new scorer, new generation
+        tag.  Callers that serve traffic hold the batcher's swap lock
+        (Batcher.set_scoring_head); the staged path swaps whole
+        pipelines instead (control/rollout.py admit_scoring)."""
+        self.scoring_head = head
+        if head is not None:
+            from ingress_plus_tpu_torch.learn.head import LearnedScorer
+
+            self.scorer = LearnedScorer(head, self.ruleset)
+            self.generation_tag = "%s+%s" % (self.ruleset.version,
+                                             self.scorer.version)
+        else:
+            self.scorer = None
+            self.generation_tag = self.ruleset.version
 
     def reset_detection_observations(self) -> None:
         """Zero the detection-plane telemetry (RuleStats counters + the
@@ -1067,6 +1104,7 @@ class DetectionPipeline:
         failed_rows: List[int] = []
         ridx_all: List[int] = []
         rns_all: List[int] = []
+        scorer = self.scorer
         for qi, req in enumerate(requests):
             res = results[qi]
             if res is None:
@@ -1092,6 +1130,20 @@ class DetectionPipeline:
             classes = sorted(
                 {CLASSES[rs.rule_class[r]] for r in confirmed})
             attack = bool(confirmed) and score >= self.anomaly_threshold
+            learned_score: Optional[float] = None
+            if scorer is not None:
+                # learned scoring lane (docs/LEARNED_SCORING.md): one
+                # host dot over the confirmed-hit bitmap decides the
+                # attack flag; the fixed CRS sum above is STILL computed
+                # and exported (Verdict.score) so live divergence
+                # between the scorers is a first-class signal
+                learned_score = scorer.score_confirmed(confirmed)
+                fixed_attack = attack
+                attack = bool(confirmed) and \
+                    learned_score >= scorer.threshold
+                if attack != fixed_attack:
+                    stats.count_scorer_diff(
+                        "learned_flag" if attack else "learned_pass")
             deny = any(rs.rule_action[r] == 2 for r in confirmed)
             # --- ACL evaluation (wallarm-acl): longest-prefix decision
             # over the tenant-bound (or default) list.  deny blocks
@@ -1127,6 +1179,7 @@ class DetectionPipeline:
                 classes=classes,
                 rule_ids=[int(rs.rule_ids[r]) for r in confirmed],
                 score=score,
+                learned_score=learned_score,
                 matches=points,
             ))
             all_confirmed.extend(confirmed)

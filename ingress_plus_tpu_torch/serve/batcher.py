@@ -922,6 +922,9 @@ class Batcher:
             ruleset, mode=old.mode,
             anomaly_threshold=old.anomaly_threshold,
             fail_open=old.fail_open, paranoia_level=paranoia_level,
+            # the learned scoring head rides the swap (rule-id remap
+            # re-binds it to the new pack's axis; docs/LEARNED_SCORING.md)
+            scoring_head=old.scoring_head,
             engine=old.engine.rebuilt(ruleset))
         for shape in sorted(getattr(old, "seen_shapes", ())):
             new.warm_shape(*shape)
@@ -991,6 +994,18 @@ class Batcher:
             # detects the version change and fails them open at finish
             self.stream_engine.pipeline = new
             self._reapply_tenants()
+
+    def set_scoring_head(self, head) -> None:
+        """Break-glass one-shot scoring-head install/clear (the staged
+        path is RolloutController.admit_scoring).  Under the swap lock:
+        finalize reads ``pipeline.scorer`` once per batch and the
+        generation tag must never change mid-batch.  An active staged
+        rollout is aborted first — same contract as the force ruleset
+        swap."""
+        if self.rollout is not None:
+            self.rollout.abort("force_swap")
+        with self._swap_lock:
+            self.pipeline.set_scoring_head(head)
 
     def set_tenant_tags(self, tags) -> None:
         """Dynamic EP-routing update (no reload): install the semantic

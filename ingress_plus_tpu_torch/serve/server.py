@@ -25,9 +25,18 @@ ramp, promote or rollback; ``?mode=force`` is the break-glass one-shot
 swap), ``/rollout`` reads or aborts it, and ``/rules/stats?format=
 profile`` exports the ``MeasuredProfile``.
 
-Not here (their modules are not ported): the learned scoring head
-(``/scoring``), the post plane (``/wallarm-status`` answers
-``{"postanalytics": "disabled"}``), the admission front and ``--mesh``.
+The post plane (``--spool-dir`` / ``--export-url`` / ``--artifact-dir``):
+each verdict is recorded to ``post.PostChannel`` after it is final, the
+exporter delivers attacks and brute/dirbust events off the hot path,
+``/wallarm-status`` serves its counters, and a ``RulesetWatcher`` stages
+new compiled packs from ``--artifact-dir`` through
+``/configuration/ruleset``.  The learned scoring head (``--scoring-head``,
+else the scorer LKG in ``--lkg-dir``) decides the attack flag;
+``/scoring`` reads it and ``POST /configuration/scoring`` stages a new one
+through the same rollout.
+
+Not here (their modules are not ported): the admission front and
+``--mesh``.
 
 Run:  python -m ingress_plus_tpu_torch.serve --socket /tmp/ipt.sock \
           [--http-port 9901] [--mode block] [--platform cuda|cpu] \
@@ -164,9 +173,10 @@ def _with_help(lines):
 
 class ServeLoop:
     def __init__(self, batcher: Batcher, socket_path: str,
-                 http_port: int = 0,
+                 http_port: int = 0, post=None,
                  sidecar_status: Optional[str] = None):
         self.batcher = batcher
+        self.post = post  # PostChannel | None — postanalytics write side
         self.socket_path = socket_path
         self.http_port = http_port
         # "host:port" of the native sidecar's --status-port listener:
@@ -196,7 +206,14 @@ class ServeLoop:
         classes_index = {c: i for i, c in enumerate(
             self.batcher.pipeline.ruleset.classes)}
 
-        async def respond(req_id: int, verdict) -> None:
+        async def respond(req_id: int, verdict, request=None) -> None:
+            # postanalytics write (log-phase analog): after the verdict is
+            # final, before the frame hits the wire — O(1), lossy, off-path
+            if self.post is not None and request is not None:
+                try:
+                    self.post.record(request, verdict)
+                except Exception:
+                    pass  # postanalytics must never break delivery
             data = encode_response(
                 req_id, verdict.attack, verdict.blocked, verdict.fail_open,
                 verdict.score,
@@ -250,13 +267,14 @@ class ServeLoop:
                             task = asyncio.ensure_future(afut)
                             pending.add(task)
 
-                            def _sdone(t, req_id=req_id):
+                            def _sdone(t, req_id=req_id,
+                                       request=handle.request):
                                 pending.discard(t)
                                 if (not t.cancelled()
                                         and t.exception() is None
                                         and not writer.is_closing()):
                                     rt = asyncio.ensure_future(respond(
-                                        req_id, t.result()))
+                                        req_id, t.result(), request))
                                     pending.add(rt)
                                     rt.add_done_callback(pending.discard)
                             task.add_done_callback(_sdone)
@@ -324,8 +342,10 @@ class ServeLoop:
                                 except Exception:
                                     pass
                             # fold completed-message verdicts into the
-                            # stream's sticky state, then answer with it
-                            for _msg, fut in pairs:
+                            # stream's sticky state, then answer with it;
+                            # each message is recorded to postanalytics
+                            # individually (the frame verdict is not)
+                            for msg, fut in pairs:
                                 try:
                                     v = await asyncio.wrap_future(
                                         fut, loop=loop)
@@ -333,6 +353,11 @@ class ServeLoop:
                                     ws.sticky_fail_open = True
                                     continue
                                 ws.merge(v)
+                                if self.post is not None:
+                                    try:
+                                        self.post.record(msg, v)
+                                    except Exception:
+                                        pass
                             await respond(req_id, ws.verdict(req_id))
 
                         t = asyncio.ensure_future(_ws_reply())
@@ -387,12 +412,12 @@ class ServeLoop:
                     task = asyncio.ensure_future(afut)
                     pending.add(task)
 
-                    def _done(t, req_id=req_id):
+                    def _done(t, req_id=req_id, request=request):
                         pending.discard(t)
                         if (not t.cancelled() and t.exception() is None
                                 and not writer.is_closing()):
                             rt = asyncio.ensure_future(
-                                respond(req_id, t.result()))
+                                respond(req_id, t.result(), request))
                             pending.add(rt)
                             rt.add_done_callback(pending.discard)
                     task.add_done_callback(_done)
@@ -472,13 +497,22 @@ class ServeLoop:
             'ipt_ruleset_info{version="%s",rules="%d"} 1'
             % (pipeline.ruleset.version, pipeline.ruleset.n_rules),
         ]
-        # --- learned scoring lane (docs/LEARNED_SCORING.md): no head is
-        # ported, so the gauge reads 0 and the divergence series stays
-        # empty — the JAX server's surface without a head
+        # --- learned scoring lane (docs/LEARNED_SCORING.md): whether a
+        # head is installed, which one, and the live fixed-vs-learned
+        # verdict divergence (the signal a bad model shows FIRST)
+        sc = pipeline.scorer
         lines += [
             "# TYPE ipt_scorer_active gauge",
-            "ipt_scorer_active 0",
+            "ipt_scorer_active %d" % (1 if sc is not None else 0),
         ]
+        if sc is not None:
+            lines += [
+                "# TYPE ipt_scorer_info gauge",
+                'ipt_scorer_info{version="%s",coverage="%.4f"} 1'
+                % (sc.version, sc.coverage),
+                "# TYPE ipt_scorer_threshold gauge",
+                "ipt_scorer_threshold %s" % round(sc.threshold, 6),
+            ]
         # --- detection-plane telemetry: family-level hit
         # series (bounded cardinality — full per-rule detail is
         # JSON-only at /rules/stats) + device-efficiency gauges
@@ -733,6 +767,28 @@ class ServeLoop:
             'ipt_confirm_regex_evals_total{version="%s"} %d'
             % (pipeline.rule_stats.version, qr["regex_evals"]),
         ]
+        if self.post is not None:
+            lines += [
+                "# TYPE ipt_post_queue_depth gauge",
+                "ipt_post_queue_depth %d" % len(self.post.queue),
+                "# TYPE ipt_post_dropped_total counter",
+                "ipt_post_dropped_total %d" % self.post.queue.dropped,
+                "# TYPE ipt_post_attacks_exported_total counter",
+                "ipt_post_attacks_exported_total %d"
+                % self.post.exporter.exported_attacks,
+                "# TYPE ipt_post_export_errors_total counter",
+                "ipt_post_export_errors_total %d"
+                % self.post.exporter.export_errors,
+                "# TYPE ipt_post_backoff_s gauge",
+                "ipt_post_backoff_s %s"
+                % round(self.post.exporter.backoff_s, 3),
+                "# TYPE ipt_post_spool_dropped_files_total counter",
+                "ipt_post_spool_dropped_files_total %d"
+                % self.post.exporter.spool_dropped_files,
+                "# TYPE ipt_post_spool_dropped_bytes_total counter",
+                "ipt_post_spool_dropped_bytes_total %d"
+                % self.post.exporter.spool_dropped_bytes,
+            ]
         return "\n".join(_with_help(lines)) + "\n"
 
     def http_get(self, path: str) -> Tuple[str, str, bytes]:
@@ -1010,11 +1066,11 @@ class ServeLoop:
                 {"slowest": self.batcher.slow.snapshot(n)}).encode())
         if path.startswith("/wallarm-status"):
             # node counters JSON — the reference module's `/wallarm-status`
-            # endpoint that collectd scrapes (SURVEY.md §3.5); the post
-            # plane is not ported, so it answers as the JAX server does
-            # without one
+            # endpoint that collectd scrapes (SURVEY.md §3.5)
+            status = (self.post.status() if self.post is not None
+                      else {"postanalytics": "disabled"})
             return ("200 OK", "application/json",
-                    json.dumps({"postanalytics": "disabled"}).encode())
+                    json.dumps(status).encode())
         if path.startswith("/tenants"):
             # tenant-isolation view (docs/ROBUSTNESS.md "Tenant
             # isolation"): per-tenant admitted/shed/degraded/queue-
@@ -1094,6 +1150,100 @@ class ServeLoop:
             # after its FIRST candidate, not at the next audit
             return ("200 OK", "application/json",
                     json.dumps(pipeline.rule_stats.health()).encode())
+        if path.startswith("/scoring") and method == "GET":
+            # learned scoring lane (docs/LEARNED_SCORING.md): the
+            # installed head (version/threshold/coverage/top weights)
+            # and the live fixed-vs-learned divergence counters — the
+            # observable that says what the model is actually changing
+            sc = pipeline.scorer
+            return ("200 OK", "application/json", json.dumps({
+                "active": sc is not None,
+                "generation": pipeline.generation_tag,
+                "anomaly_threshold": pipeline.anomaly_threshold,
+                "head": sc.snapshot() if sc is not None else None,
+                "diff": dict(pipeline.stats.scorer_diff),
+            }).encode())
+        if path.startswith("/configuration/scoring") and method == "POST":
+            # scoring-head delivery: STAGED by default when a rollout
+            # controller is attached (the head rides the same admission
+            # → shadow → canary → LIVE gates as a ruleset swap);
+            # ?mode=force one-shot installs/clears break-glass style.
+            # Payload: {"path": "<artifact>"} or {"clear": true} (force
+            # only — "roll out removing the model" has no gate story).
+            from urllib.parse import parse_qs, urlsplit
+            from ingress_plus_tpu_torch.control.rollout import (
+                RolloutRejected,
+            )
+            from ingress_plus_tpu_torch.learn.head import ScoringHead
+
+            ro = self.batcher.rollout
+            q = parse_qs(urlsplit(path).query, keep_blank_values=True)
+            swap_mode = (q.get("mode")
+                         or ["staged" if ro is not None else "force"])[0]
+            if swap_mode not in ("staged", "force"):
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": "mode must be staged|force"}
+                                   ).encode())
+            try:
+                spec = json.loads(payload or b"{}")
+                if not isinstance(spec, dict):
+                    raise ValueError("payload must be a JSON object")
+                clear = bool(spec.get("clear"))
+                art = None if clear else str(spec["path"])
+            except (KeyError, ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": str(e)}).encode())
+            if swap_mode == "staged":
+                if ro is None:
+                    return ("409 Conflict", "application/json",
+                            json.dumps({"error": "staged rollout "
+                                        "unavailable: no rollout "
+                                        "controller attached "
+                                        "(use ?mode=force)"}).encode())
+                if clear:
+                    return ("400 Bad Request", "application/json",
+                            json.dumps({"error": "clear requires "
+                                        "?mode=force"}).encode())
+                overrides = {k: spec[k]
+                             for k in ("steps", "step_min_requests",
+                                       "shadow_min_requests",
+                                       "shadow_sample") if k in spec}
+                try:
+                    report = await loop.run_in_executor(
+                        None, lambda: ro.admit_scoring(
+                            artifact_path=art, overrides=overrides))
+                except RolloutRejected as e:
+                    return ("422 Unprocessable Entity", "application/json",
+                            json.dumps({"rejected": True,
+                                        **e.report}).encode())
+                except (OSError, ValueError, TypeError) as e:
+                    return ("400 Bad Request", "application/json",
+                            json.dumps({"error": str(e)}).encode())
+                return "200 OK", "application/json", json.dumps(
+                    {"staged": True, **report}).encode()
+
+            def _force_install():
+                head = None
+                if not clear:
+                    head = ScoringHead.load(art)
+                self.batcher.set_scoring_head(head)
+                return head
+
+            try:
+                head = await loop.run_in_executor(None, _force_install)
+            except Exception as e:
+                if ro is not None:
+                    ro.count_rejected("scorer_load")
+                return ("400 Bad Request", "application/json",
+                        json.dumps({"error": "%s: %s"
+                                    % (type(e).__name__, e),
+                                    "stage": "load"}).encode())
+            return "200 OK", "application/json", json.dumps({
+                "scoring": (head.version if head is not None else None),
+                "mode": "force",
+                "generation": self.batcher.pipeline.generation_tag,
+            }).encode()
         if path.startswith("/rules/drift"):
             # hit-rate deltas across the most recent hot reload: the
             # outgoing version's counters freeze at swap; rules that
@@ -1333,6 +1483,8 @@ class ServeLoop:
         for s in self._servers:
             s.close()
         self.batcher.close()
+        if self.post is not None:
+            self.post.close()
 
 
 def build_default_batcher(mode: str = "block",
@@ -1355,7 +1507,9 @@ def build_default_batcher(mode: str = "block",
                           tenant_queue_cap: int = 0,
                           tenant_weights: Optional[str] = None,
                           tenant_guard: str = "prefilter_only",
-                          platform: str = "cuda") -> Batcher:
+                          platform: str = "cuda",
+                          scoring_head_path: Optional[str] = None
+                          ) -> Batcher:
     """The serving batcher, with its guarded-rollout controller.
 
     The pack: the last-known-good from ``lkg_dir`` when there is one
@@ -1364,7 +1518,10 @@ def build_default_batcher(mode: str = "block",
     tree that does not compile raises); else the committed bundled pack.
     ``platform`` picks the torch device (``cuda``: the card, where the
     engine builds and loads both scan kernels before anything else;
-    ``cpu``: the plain scan).  ``scan_impl`` "auto" is the device's
+    ``cpu``: the plain scan).  The learned scoring head: the artifact at
+    ``scoring_head_path`` when given, else the scorer LKG from
+    ``lkg_dir``; one that does not load serves fixed CRS weights, with a
+    loud warning.  ``scan_impl`` "auto" is the device's
     default: ``pallas3`` (the pair kernel on raw bytes) on ``cuda``,
     ``pair`` on ``cpu`` — a constant, not a startup timing, until a
     benchmark shows which kernel wins end to end.  Warmup dispatches run
@@ -1464,6 +1621,37 @@ def build_default_batcher(mode: str = "block",
             batcher.warm_lanes()
         print("warmup: %d lane(s) warmed in %.1fs"
               % (n_lanes, time.time() - t0), file=sys.stderr)
+    # learned scoring head (docs/LEARNED_SCORING.md), installed after
+    # the warmup so its synthetic traffic counts no scorer divergence:
+    # an explicit --scoring-head artifact wins; otherwise the scorer LKG
+    # (the last head that survived a staged rollout) restores like the
+    # pack LKG.  Either failing to load serves fixed weights — never an
+    # outage.
+    head = None
+    if scoring_head_path:
+        from ingress_plus_tpu_torch.learn.head import ScoringHead
+
+        try:
+            head = ScoringHead.load(scoring_head_path)
+        except Exception as e:
+            # the contract holds for the explicit flag too: serving
+            # starts on fixed weights, the broken artifact is LOUD
+            print("WARNING: --scoring-head %s unloadable (%s: %s) — "
+                  "serving FIXED CRS weights"
+                  % (scoring_head_path, type(e).__name__, e),
+                  file=sys.stderr)
+    elif lkg_dir:
+        from ingress_plus_tpu_torch.learn.head import load_lkg_scorer
+
+        head = load_lkg_scorer(lkg_dir)
+        if head is not None:
+            print("startup: restoring last-known-good scoring head %s"
+                  % head.version, file=sys.stderr)
+    if head is not None:
+        pipeline.set_scoring_head(head)
+        print("learned scoring: head %s (threshold %.4f, coverage %.3f)"
+              % (head.version, pipeline.scorer.threshold,
+                 pipeline.scorer.coverage), file=sys.stderr)
     # guarded-rollout controller: idle until an admit; makes STAGED the
     # default semantics of /configuration/ruleset on this server
     cfg = RolloutConfig(fail_on=rollout_fail_on, lkg_dir=lkg_dir)
@@ -1584,13 +1772,33 @@ def main(argv=None) -> None:
                          "digest) that survives across batches.  0 "
                          "(default) keeps the per-cycle flood memo only")
     ap.add_argument("--scan-impl", default="auto",
-                    choices=["auto", "pair", "pallas", "pallas2",
+                    choices=["auto", "pair", "take", "pallas", "pallas2",
                              "pallas3"],
                     help="scan implementation: on cuda auto = pallas3 "
                          "(the pair kernel on raw bytes); pallas = the "
                          "per-byte step kernel, pallas2 = the pair kernel "
-                         "on class ids; on cpu the only implementation "
-                         "is pair")
+                         "on class ids; take = the per-byte scan on either "
+                         "device (the step kernel on cuda, the plain scan "
+                         "on cpu); on cpu auto = pair")
+    ap.add_argument("--spool-dir", default=None,
+                    help="postanalytics spool dir (attacks.jsonl); "
+                         "enables the exporter loop")
+    ap.add_argument("--export-url", default=None,
+                    help="optional HTTP collector for attack export")
+    ap.add_argument("--export-interval-s", type=float, default=5.0)
+    ap.add_argument("--brute-threshold", type=int, default=25,
+                    help="brute: requests per window per "
+                         "(tenant, client, auth path); 0 disables the "
+                         "rate detectors entirely")
+    ap.add_argument("--brute-window-s", type=float, default=60.0)
+    ap.add_argument("--dirbust-threshold", type=int, default=50,
+                    help="dirbust: distinct paths per window per "
+                         "(tenant, client); 0 disables dirbust only")
+    ap.add_argument("--dirbust-window-s", type=float, default=60.0)
+    ap.add_argument("--artifact-dir", default=None,
+                    help="watch this dir for compiled-ruleset artifacts "
+                         "and stage them through /configuration/ruleset "
+                         "(sync-node analog; needs --http-port)")
     ap.add_argument("--trace-dir", default=None,
                     help="collect a torch.profiler trace (host + CUDA) "
                          "of the serve loop and write it as a Chrome "
@@ -1668,6 +1876,11 @@ def main(argv=None) -> None:
                          "pack with unsuppressed findings at or above "
                          "this level is rejected before touching "
                          "traffic")
+    ap.add_argument("--scoring-head", default=None,
+                    help="learned scoring-head artifact to serve with "
+                         "(learn/; docs/LEARNED_SCORING.md) — overrides "
+                         "the scorer LKG; omitted = scorer LKG from "
+                         "--lkg-dir, else fixed CRS weights")
     ap.add_argument("--faults", default=None,
                     help="deterministic fault plan, e.g. "
                          "'dispatch_hang:after=100,times=1,delay_s=5'; "
@@ -1720,7 +1933,8 @@ def main(argv=None) -> None:
             tenant_queue_cap=args.tenant_queue_cap,
             tenant_weights=args.tenant_weights,
             tenant_guard=args.tenant_guard,
-            platform=args.platform)
+            platform=args.platform,
+            scoring_head_path=args.scoring_head)
     except (RuntimeError, ValueError) as e:
         # no card, an impl the device cannot run, a kernel that does
         # not build or load, a rules tree that does not compile:
@@ -1728,11 +1942,41 @@ def main(argv=None) -> None:
         raise SystemExit("ingress_plus_tpu_torch.serve: startup failed: %s"
                          % e)
 
-    loop = ServeLoop(batcher, args.socket, args.http_port,
+    post = None
+    if args.spool_dir or args.export_url:
+        from ingress_plus_tpu_torch.post import PostChannel
+        from ingress_plus_tpu_torch.post.brute import BruteConfig
+
+        post = PostChannel(
+            spool_dir=args.spool_dir,
+            http_url=args.export_url,
+            interval_s=args.export_interval_s,
+            brute=args.brute_threshold > 0,
+            brute_config=BruteConfig(
+                window_s=args.brute_window_s,
+                threshold=args.brute_threshold,
+                dirbust_threshold=args.dirbust_threshold,
+                dirbust_window_s=args.dirbust_window_s))
+        post.start()
+
+    watcher = None
+    if args.artifact_dir and args.http_port:
+        from ingress_plus_tpu_torch.post import RulesetWatcher
+
+        watcher = RulesetWatcher(args.artifact_dir,
+                                 "127.0.0.1:%d" % args.http_port)
+        watcher.current_version = batcher.pipeline.ruleset.version
+        watcher.start()
+
+    loop = ServeLoop(batcher, args.socket, args.http_port, post=post,
                      sidecar_status=args.sidecar_status)
     from ingress_plus_tpu_torch.utils.trace import profiled
-    with profiled(args.trace_dir):
-        asyncio.run(loop.run_forever())
+    try:
+        with profiled(args.trace_dir):
+            asyncio.run(loop.run_forever())
+    finally:
+        if watcher is not None:
+            watcher.close()
 
 
 if __name__ == "__main__":

@@ -72,8 +72,8 @@ card, or on the CPU when asked) under every ported scenario plus a
 synthetic overload burst and asserts the serve-plane invariant — every
 admitted request resolves to exactly one verdict, and no fault becomes
 an unhandled exception or a block.  On a card, a breaker-open batch
-fails open instead of moving to the host.  The post-plane and fleet
-scenarios wait for their modules (``NOT_PORTED``).  See
+fails open instead of moving to the host.  The fleet scenarios wait
+for their modules (``NOT_PORTED``).  See
 docs/ROBUSTNESS.md.
 """
 
@@ -631,6 +631,70 @@ def _scenario_swap_fail(install_plan, device=None) -> dict:
         b.close()
 
 
+def _scenario_export_5xx(install_plan, device=None) -> dict:
+    """Collector 5xx streak: export errors count, the retry interval
+    backs off exponentially (with jitter, capped), and recovery resets
+    it.  Off the verdict path by construction: the exporter touches no
+    device, so ``device`` is unused."""
+    import http.server
+    import json as _json
+
+    from ingress_plus_tpu_torch.post.export import Exporter
+    from ingress_plus_tpu_torch.post.queue import Hit, HitQueue
+
+    class _OK(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            self.send_response(200)
+            self.send_header("Content-Length", "2")
+            self.end_headers()
+            self.wfile.write(b"ok")
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.HTTPServer(("127.0.0.1", 0), _OK)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    install_plan(FaultPlan.from_spec("export_5xx:times=3"))
+    q = HitQueue(maxlen=1024)
+    exp = Exporter(q, http_url="http://127.0.0.1:%d/collect"
+                   % httpd.server_address[1], interval_s=0.2)
+    violations: List[str] = []
+    try:
+        waits = []
+        for _ in range(3):
+            q.put(Hit(ts=time.time(), request_id="e", tenant=0, client="c",
+                      method="GET", uri=ATTACK_URI, classes=("sqli",),
+                      rule_ids=(942100,), score=5, blocked=True,
+                      attack=True, fail_open=False, mode=2))
+            exp.flush_once()
+            waits.append(exp.next_wait_s())
+        if exp.export_errors < 3 or exp.consecutive_failures != 3:
+            violations.append("export failures not counted: errors=%d "
+                              "consecutive=%d" % (exp.export_errors,
+                                                  exp.consecutive_failures))
+        if not (waits[0] > exp.interval_s and waits[2] > waits[0]):
+            violations.append("backoff did not grow: %s"
+                              % _json.dumps(waits))
+        if any(w > exp.backoff_max_s for w in waits):
+            violations.append("backoff exceeded its ceiling")
+        q.put(Hit(ts=time.time(), request_id="e2", tenant=0, client="c",
+                  method="GET", uri=ATTACK_URI, classes=("sqli",),
+                  rule_ids=(942100,), score=5, blocked=True,
+                  attack=True, fail_open=False, mode=2))
+        n = exp.flush_once()   # fault exhausted: delivery succeeds
+        if n < 1 or exp.consecutive_failures != 0 \
+                or exp.next_wait_s() != exp.interval_s:
+            violations.append("recovery did not reset the backoff")
+        return {"ok": not violations, "violations": violations,
+                "waits_s": [round(w, 3) for w in waits]}
+    finally:
+        exp.close()
+        httpd.shutdown()
+        httpd.server_close()
+
+
 def _scenario_slow_confirm(install_plan, device=None) -> dict:
     """Pathological confirm latency: verdicts all land (late, not
     lost) and the brownout ladder has pressure signal to act on."""
@@ -1139,6 +1203,7 @@ SCENARIOS = {
     "dispatch_raise": _scenario_dispatch_raise,
     "recompile_storm": _scenario_recompile_storm,
     "swap_fail": _scenario_swap_fail,
+    "export_5xx": _scenario_export_5xx,
     "slow_confirm": _scenario_slow_confirm,
     "confirm_worker_hang": _scenario_confirm_worker_hang,
     "rollout_promote_fail": _scenario_rollout_promote_fail,
@@ -1153,7 +1218,6 @@ SCENARIOS = {
 #: scenarios of the JAX package's matrix whose modules this package does
 #: not have yet, with what they wait for: reported, never run or passed
 NOT_PORTED = {
-    "export_5xx": "the post plane (post/export.py)",
     "fleet_scrape": "the fleet observer (control/fleetobs.py)",
     "fleet_node_kill": "the front (serve/front.py) and fleet control",
     "fleet_rollout_node_death": "fleet control (control/fleetctl.py)",

@@ -108,6 +108,34 @@ def test_detect_device_multi_equal_jax_on_corpus(engines, head_only):
     assert got.any()
 
 
+@pytest.mark.parametrize("head_only", [False, True])
+def test_take_rule_hits_equal_jax_take_and_port_pair(engines, head_only):
+    """``take`` on the CPU (the plain per-byte ``scan_bytes``) gives the
+    rule hits of the JAX engine's ``take`` and of the port's ``pair``
+    on the same seeded requests and pack."""
+    jax_engine, port_engine = engines
+    cr = port_engine.ruleset
+    jax_take = jengine.DetectionEngine(JaxRuleset.load(BUNDLED_PACK),
+                                       scan_impl="take")
+    port_take = tengine.DetectionEngine(cr, scan_impl="take", device=CPU)
+    pl = DetectionPipeline(cr, engine=port_engine)
+    reqs = [lr.request for lr in generate_corpus(n=48, seed=20260805)]
+    if head_only:
+        reqs = [r for r in reqs if not r.body]
+    buckets, head_ok = pl._build_scan_buckets(reqs)
+    assert head_ok == head_only
+    Q = pl._pad_q(len(reqs))
+    want = np.asarray(jax_take.detect_device_multi(
+        tuple(buckets), Q, head_only=head_only))
+    got = port_take.detect_device_multi(tuple(buckets), Q,
+                                        head_only=head_only)
+    pair = port_engine.detect_device_multi(tuple(buckets), Q,
+                                           head_only=head_only)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pair)
+    assert got.any()
+
+
 def test_detect_single_bucket_equal_jax(engines):
     jax_engine, port_engine = engines
     pl = DetectionPipeline(port_engine.ruleset, engine=port_engine)
@@ -128,7 +156,10 @@ def test_scan_impl_device_rules(engines):
         with pytest.raises(ValueError, match="cannot run on a cpu"):
             tengine.DetectionEngine(cr, scan_impl=impl, device=CPU)
     with pytest.raises(ValueError, match="unknown scan_impl"):
-        tengine.DetectionEngine(cr, scan_impl="take", device=CPU)
+        tengine.DetectionEngine(cr, scan_impl="gather", device=CPU)
+    take = tengine.DetectionEngine(cr, scan_impl="take", device=CPU)
+    assert take.scanner_for() is None and take.head_slicing_active()
+    assert take.exec_keys() == (("tables", "cpu"),)
     info = port_engine.device_info()
     assert info["scan_impl"] == "pair" and info["device"] == "cpu"
     assert (info["n_words"], info["n_classes"]) == (225, 58)

@@ -35,7 +35,7 @@ def _no_leftover_plan():
 def test_every_jax_scenario_is_ported_or_named():
     assert set(SCENARIOS) | set(NOT_PORTED) == set(JAX_SCENARIOS)
     assert not set(SCENARIOS) & set(NOT_PORTED)
-    assert len(SCENARIOS) == 14
+    assert len(SCENARIOS) == 15 and "export_5xx" in SCENARIOS
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
@@ -48,10 +48,10 @@ def test_scenario_ok_on_cpu(name):
 
 
 def test_unported_scenario_never_passes():
-    rep = run_fault_matrix(only=["export_5xx"], device="cpu")
+    rep = run_fault_matrix(only=["fleet_scrape"], device="cpu")
     assert not rep["passed"]
-    assert rep["scenarios"]["export_5xx"]["violations"] == [
-        "not ported: needs %s" % NOT_PORTED["export_5xx"]]
+    assert rep["scenarios"]["fleet_scrape"]["violations"] == [
+        "not ported: needs %s" % NOT_PORTED["fleet_scrape"]]
 
 
 class _FakeStream:

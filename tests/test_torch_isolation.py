@@ -267,3 +267,48 @@ def test_compiler_and_rollout_admit_with_jax_absent():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"state": "shadow", "new_fns": 0, "rules": [2, 3],
                    "modules": []}
+
+
+_POST_LEARN_CHILD = r"""
+import json, sys, tempfile
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None   # and of the JAX package
+import ingress_plus_tpu_torch.post.export
+import ingress_plus_tpu_torch.learn.train
+from ingress_plus_tpu_torch.learn.train import TrainConfig, train_from_dataset
+from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+from ingress_plus_tpu_torch.post import PostChannel
+from ingress_plus_tpu_torch.utils.corpus import generate_corpus
+from ingress_plus_tpu_torch.utils.export_corpus import build_feature_dataset
+from ingress_plus_tpu_torch.weights import load_pack
+ds = build_feature_dataset(n=32, seed=3, ruleset=load_pack(), batch=16,
+                           include_fixtures=False, device="cpu")
+head = train_from_dataset(ds, TrainConfig(iters=20))
+pl = DetectionPipeline(load_pack(), device="cpu", scoring_head=head)
+ch = PostChannel(spool_dir=tempfile.mkdtemp(), brute=False)
+reqs = [lr.request for lr in generate_corpus(n=16, seed=3)]
+for r, v in zip(reqs, pl.detect(reqs)):
+    ch.record(r, v)
+print(json.dumps({
+    "rows": ds.n, "head": head.version == head.fingerprint(),
+    "exported": ch.exporter.flush_once() > 0,
+    "modules": sorted(m for m in sys.modules
+                      if (m == "ingress_plus_tpu"
+                          or m.startswith("ingress_plus_tpu.")
+                          or m.split(".")[0] == "jax")
+                      and sys.modules[m] is not None)}))
+"""
+
+
+def test_post_plane_and_scoring_head_run_with_jax_absent():
+    """The feature export, the trainer, a head-scored pipeline and the
+    post channel's export, in a process where jax and the JAX package
+    cannot be imported."""
+    proc = subprocess.run([sys.executable, "-c", _POST_LEARN_CHILD],
+                          cwd=str(REPO), env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"rows": 32, "head": True, "exported": True,
+                   "modules": []}

@@ -30,11 +30,13 @@ import torch
 from ingress_plus_tpu.compiler.ruleset import compile_ruleset as jax_compile
 from ingress_plus_tpu.compiler.seclang import parse_seclang as jax_parse
 from ingress_plus_tpu.control import rollout as jro
+from ingress_plus_tpu.learn import head as jhead
 from ingress_plus_tpu.serve.server import ServeLoop as JaxServeLoop
 from ingress_plus_tpu.utils import faults as jfaults
 from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
 from ingress_plus_tpu_torch.compiler.seclang import parse_seclang
 from ingress_plus_tpu_torch.control import rollout as tro
+from ingress_plus_tpu_torch.learn import head as thead
 from ingress_plus_tpu_torch.control.rollout import (
     CANARY,
     LIVE,
@@ -841,3 +843,300 @@ def test_server_rules_dir_staged_rollout_and_lkg_restart(packs, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# ------------------------------------------------ scoring-head rollouts
+
+def _drill_scoring_head(threshold=3.0, version="drillhead-1", mod=thead):
+    """Hand-built head over the drill pack's two CRS ids: weight 4 per
+    rule, so any confirmed hit clears threshold 3 — decision-identical
+    to the fixed weights (CRITICAL=5 >= anomaly threshold 5), which
+    keeps the admission replay diff-free.  ``mod``: the JAX package's
+    ``learn.head`` for its twin."""
+    return mod.ScoringHead(rule_ids=[942100, 941100], weights=[4.0, 4.0],
+                           bias=0.0, threshold=threshold, version=version)
+
+
+def test_scoring_rollout_reaches_live_generation_correct(packs, jpacks,
+                                                         tmp_path):
+    """A scoring-head swap rides the full staged gates under load: every
+    scanned verdict names exactly one of the two generations,
+    candidate-served verdicts carry the learned margin, promote leaves
+    the PACK untouched but installs the head, and the scorer LKG
+    persists — the JAX package's files byte for byte in the ``.json``.
+    The admission report equals the JAX controller's."""
+    b, ro = _rollout_batcher(packs, lkg_dir=str(tmp_path / "port"))
+    jb, jr = _jax_rollout_batcher(jpacks)
+    head = _drill_scoring_head()
+    inc_v = packs["inc"].version
+    cand_gen = "%s+%s" % (inc_v, head.version)
+    try:
+        rep = ro.admit_scoring(head=head)
+        assert rep == jr.admit_scoring(head=_drill_scoring_head(mod=jhead))
+        assert rep["kind"] == "scorer" and rep["coverage"] == 1.0
+        assert rep["replay"]["new_fns"] == 0
+        assert set(ro.admission_seconds) == {"load", "coverage", "compile",
+                                             "replay"}
+        verdicts = _drive(b, ro, (LIVE, REJECTED, ROLLED_BACK), tag="sc")
+        assert ro.state == LIVE, (ro.state, ro.rollback_reason)
+        gens = {v.generation for v in verdicts if v.generation}
+        assert gens <= {inc_v, cand_gen}, gens
+        cand_served = [v for v in verdicts if v.generation == cand_gen]
+        assert cand_served
+        assert all(v.learned_score is not None for v in cand_served)
+        assert all(v.learned_score is None for v in verdicts
+                   if v.generation == inc_v)
+        assert b.pipeline.ruleset.version == inc_v
+        assert b.pipeline.scorer is not None
+        assert b.pipeline.frozen_rule_stats is not None
+        vs, viol = _collect([b.submit(r) for r in
+                             _requests(8, attack_every=4, tag="scp")], 30)
+        assert not viol
+        hits = [v for v in vs if v.attack]
+        assert hits and all(v.generation == cand_gen for v in hits)
+        lkg = thead.load_lkg_scorer(tmp_path / "port")
+        assert lkg is not None and lkg.version == head.version
+        jhead.persist_lkg_scorer(_drill_scoring_head(mod=jhead),
+                                 tmp_path / "jax")
+        name = "scorer-%s.json" % head.version
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes()
+    finally:
+        b.close()
+        jb.close()
+
+
+def test_scoring_admission_rejections(packs, jpacks, tmp_path):
+    """Malformed artifact, alien rule-id map, and an over-passing head
+    are each rejected at their own stage with zero traffic impact; each
+    rejection report equals the JAX controller's."""
+    b, ro = _rollout_batcher(packs)
+    jb, jr = _jax_rollout_batcher(jpacks)
+
+    def reject(**kw):
+        with pytest.raises(RolloutRejected) as ei:
+            ro.admit_scoring(**{k: v[0] for k, v in kw.items()})
+        with pytest.raises(jro.RolloutRejected) as ej:
+            jr.admit_scoring(**{k: v[1] for k, v in kw.items()})
+        assert ei.value.report == ej.value.report
+        return ei.value.report
+
+    try:
+        art = tmp_path / "garbage-head"
+        art.with_suffix(".npz").write_bytes(b"not an npz")
+        art.with_suffix(".json").write_text("{}")
+        report = reject(artifact_path=(str(art), str(art)))
+        assert report["stage"] == "load"
+        assert ro.swap_rejected.get("scorer_load") == 1
+        alien = [m.ScoringHead(rule_ids=[1, 2, 3], weights=[1.0] * 3,
+                               bias=0.0, threshold=0.5, version="alien-1")
+                 for m in (thead, jhead)]
+        report = reject(head=alien)
+        assert report["stage"] == "coverage"
+        assert report["detail"]["coverage"] == 0.0
+        # a 256-request corpus carries golden attacks the 2-rule pack
+        # flags; an unreachable threshold loses them → replay gate
+        ro._base_config.corpus_n = 256
+        jr._base_config.corpus_n = 256
+        report = reject(head=(
+            _drill_scoring_head(threshold=99.0, version="lossy-1"),
+            _drill_scoring_head(threshold=99.0, version="lossy-1",
+                                mod=jhead)))
+        assert report["stage"] == "replay"
+        assert report["reason"] == "new_fns"
+        assert report["detail"]["new_fns"] > 0
+        assert b.pipeline.scorer is None
+        vs, viol = _collect([b.submit(r) for r in
+                             _requests(8, attack_every=4, tag="sar")], 30)
+        assert not viol
+        hits = [v for v in vs if v.attack]
+        assert hits and all(v.generation == packs["inc"].version
+                            for v in hits)
+    finally:
+        b.close()
+        jb.close()
+
+
+def test_scoring_midcanary_verdict_diff_rollback(packs, tmp_path):
+    """Mid-canary divergence (the shadow_diverge fault site) trips the
+    verdict-diff trigger: auto-rollback restores the fixed-weight
+    scorer, the head is quarantined with the reason, and the incumbent
+    never stops serving."""
+    b, ro = _rollout_batcher(packs, lkg_dir=str(tmp_path))
+    head = _drill_scoring_head(version="diverge-1")
+    try:
+        ro.admit_scoring(head=head)
+        deadline = time.monotonic() + 60
+        wave = 0
+        while ro.state in (SHADOW, "admitted") \
+                and time.monotonic() < deadline:
+            _, viol = _collect([b.submit(r) for r in
+                                _requests(24, attack_every=4,
+                                          tag="dv%d" % wave)], 30)
+            assert not viol, viol
+            wave += 1
+        assert ro.state == CANARY, (ro.state, ro.rollback_reason)
+        tfaults.install(tfaults.FaultPlan.from_spec(
+            "shadow_diverge:times=100"))
+        verdicts = _drive(b, ro, (LIVE, REJECTED, ROLLED_BACK), tag="dx")
+        assert verdicts is not None
+        assert ro.state == ROLLED_BACK, (ro.state, ro.rollback_reason)
+        assert ro.rollback_reason == "verdict_diff"
+        assert b.pipeline.scorer is None
+        vs, viol = _collect([b.submit(r) for r in
+                             _requests(8, attack_every=4, tag="dvp")], 30)
+        assert not viol
+        hits = [v for v in vs if v.attack]
+        assert hits and all(v.generation == packs["inc"].version
+                            for v in hits)
+        qfiles = list((tmp_path / "quarantine").glob("*.json"))
+        assert qfiles
+        q = json.loads(qfiles[0].read_text())
+        assert q["reason"] == "verdict_diff"
+        assert q["version"] == head.version
+    finally:
+        tfaults.clear()
+        b.close()
+
+
+@pytest.fixture()
+def serve_stack(packs, tmp_path):
+    b, ro = _rollout_batcher(packs, lkg_dir=str(tmp_path / "lkg"))
+    serve = ServeLoop(b, str(tmp_path / "ipt.sock"))
+    yield serve, b, ro, tmp_path
+    b.close()
+
+
+def test_endpoint_scoring_staged_force_and_status(serve_stack):
+    """/configuration/scoring staged push lands in SHADOW; ?mode=force
+    installs/clears one-shot; /scoring + /metrics expose the lane."""
+    serve, b, ro, tmp_path = serve_stack
+    status, body = _route(serve, "GET", "/scoring")
+    assert status.startswith("200") and body["active"] is False
+    assert "ipt_scorer_active 0" in serve._metrics_text()
+    head = _drill_scoring_head(version="ep-1")
+    art = tmp_path / "head-ep"
+    head.save(art)
+    status, body = _route(serve, "POST", "/configuration/scoring",
+                          json.dumps({"path": str(art)}).encode())
+    assert status.startswith("200"), body
+    assert body["staged"] and body["kind"] == "scorer"
+    assert ro.state == SHADOW and b.pipeline.scorer is None
+    assert ro.abort("test")
+    status, body = _route(serve, "POST",
+                          "/configuration/scoring?mode=force",
+                          json.dumps({"path": str(art)}).encode())
+    assert status.startswith("200"), body
+    assert body["mode"] == "force" and body["scoring"] == "ep-1"
+    assert b.pipeline.scorer is not None
+    status, body = _route(serve, "GET", "/scoring")
+    assert body["active"] and body["head"]["version"] == "ep-1"
+    assert body["generation"].endswith("+ep-1")
+    m = serve._metrics_text()
+    assert "ipt_scorer_active 1" in m
+    assert 'ipt_scorer_info{version="ep-1"' in m
+    assert "ipt_scorer_threshold 3.0" in m
+    status, body = _route(serve, "POST",
+                          "/configuration/scoring?mode=force",
+                          json.dumps({"clear": True}).encode())
+    assert status.startswith("200") and b.pipeline.scorer is None
+    assert body["scoring"] is None
+    assert _route(serve, "GET", "/scoring")[1]["active"] is False
+
+
+def test_endpoint_scoring_malformed_and_staged_clear(serve_stack):
+    serve, b, ro, tmp_path = serve_stack
+    art = tmp_path / "garbage-ep"
+    art.with_suffix(".npz").write_bytes(b"junk")
+    art.with_suffix(".json").write_text("{}")
+    status, body = _route(serve, "POST", "/configuration/scoring",
+                          json.dumps({"path": str(art)}).encode())
+    assert status.startswith("422"), (status, body)
+    assert body["rejected"] and body["stage"] == "load"
+    assert b.pipeline.scorer is None
+    status, body = _route(serve, "POST", "/configuration/scoring",
+                          json.dumps({"clear": True}).encode())
+    assert status.startswith("400")
+    assert "force" in body["error"]
+    status, body = _route(serve, "POST",
+                          "/configuration/scoring?mode=force",
+                          json.dumps({"path": str(art)}).encode())
+    assert status.startswith("400") and body["stage"] == "load"
+    assert ro.swap_rejected.get("scorer_load") == 2
+
+
+def test_card_stand_in_scoring_admission_never_reaches_cpu_only(
+        packs, card_stand_in):
+    """On a card pipeline a scoring head's admission (compile smoke and
+    replay), shadow and canary run without ``detect_cpu_only``: the
+    candidate scans on an engine of its own through ``detect_strict``,
+    and the replay report equals the CPU path's."""
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+
+    CardEngine, reached, arm = card_stand_in
+    cpu_b, cpu_ro = _rollout_batcher(packs)
+    try:
+        want = cpu_ro.admit_scoring(head=_drill_scoring_head())["replay"]
+    finally:
+        cpu_b.close()
+    arm()
+    p = DetectionPipeline(packs["inc"], mode="block",
+                          engine=CardEngine(packs["inc"]))
+    b = Batcher(p, max_batch=16, max_delay_s=0.001, hard_deadline_s=30.0,
+                lane_devices=[torch.device("cpu")])
+    ro = RolloutController(b, _fast_config(tro))
+    b.rollout = ro
+    try:
+        report = ro.admit_scoring(head=_drill_scoring_head())
+        assert report["replay"] == want
+        assert ro.candidate.engine is not p.engine
+        _drive(b, ro, (LIVE, REJECTED, ROLLED_BACK), tag="cs")
+        assert ro.state == LIVE, (ro.state, ro.rollback_reason)
+        assert ro.shadow_compared >= 4
+        assert b.pipeline.scorer is not None
+        assert len(_FakeStream.made) >= 2
+        assert reached == []
+    finally:
+        b.close()
+
+
+def test_card_stand_in_shadow_ignores_the_brownout_ladder(packs,
+                                                          card_stand_in):
+    """The shadow lane's candidate scans on a card are full scans
+    whatever the serving ladder's level: the candidate shares the
+    incumbent's LoadController, and a ladder at fail-open (level 2) must
+    not turn its shadow verdicts into fail-open ones that diff as lost
+    hits against full incumbent verdicts (the CPU path's
+    ``detect_cpu_only`` ignores the ladder too)."""
+    from types import SimpleNamespace
+
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+
+    CardEngine, reached, arm = card_stand_in
+    arm()
+    p = DetectionPipeline(packs["inc"], mode="block",
+                          engine=CardEngine(packs["inc"]))
+    b = Batcher(p, max_batch=16, max_delay_s=0.001, hard_deadline_s=30.0,
+                lane_devices=[torch.device("cpu")])
+    ro = RolloutController(b, _fast_config(tro, shadow_min_requests=10**6,
+                                           shadow_cpu_budget=1.0))
+    b.rollout = ro
+    try:
+        ro.admit_scoring(head=_drill_scoring_head())
+        # the candidate's ladder reads fail-open; the incumbent's serves
+        ro.candidate.load_controller = SimpleNamespace(level=2)
+        deadline = time.monotonic() + 60
+        wave = 0
+        while ro.shadow_compared < 8 and time.monotonic() < deadline:
+            _, viol = _collect([b.submit(r) for r in _requests(
+                24, attack_every=2, tag="lad%d" % wave)], 30)
+            assert not viol
+            wave += 1
+        assert ro.shadow_compared >= 8
+        assert ro.state == SHADOW, (ro.state, ro.rollback_reason)
+        assert ro.diff == {"new_block": 0, "lost_hit": 0, "score_delta": 0}
+        assert reached == []
+    finally:
+        b.close()
