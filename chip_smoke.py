@@ -14,8 +14,9 @@ at one segment (the same kernel unsplit) in the same run.
 Phases (any failure ends the run with a non-zero exit code):
 
 1. Build both kernels from ``ingress_plus_tpu_torch/csrc`` (one nvcc per
-   source, started together; sm_90a) and print the card's name and power
-   limit.
+   source, sm_90a) and the native confirm twin (``csrc/libdetect.cc``,
+   g++), all three started together, each build timed; print the card's
+   name and power limit.
 2. Pair kernel against plain, both configurations: the CUDA kernel
    (``ByteScanner`` raw-byte, ``PairScanner`` class-id) and the plain
    ``ops/scan.py::scan_pairs`` on the same CUDA tensors -- B=1024 seeded
@@ -33,6 +34,8 @@ Phases (any failure ends the run with a non-zero exit code):
    requests through ``DetectionPipeline(device="cpu")`` (the plain scan)
    must give identical (attack, blocked, sorted rule_ids, score, classes)
    for every request, and the kernel must have launched once per bucket.
+   Both pipelines confirm with the native twin (a set
+   ``IPT_NO_NATIVE_CONFIRM`` fails the run).
    Then the kernel again on each of those launches' own buckets:
    bit-identical to the plain version, timed.
 4. Step kernel against plain: ``StepScanner`` and the plain
@@ -46,7 +49,8 @@ Phases (any failure ends the run with a non-zero exit code):
    launch per bucket, each launch re-run on its bucket and timed.  Then
    ``scan_impl="take"`` on the card (the step kernel again) over phase
    3's first 512 requests: verdicts identical to phase 3's CPU verdicts,
-   one step-kernel launch per bucket, no pair-kernel launch.
+   one step-kernel launch per bucket, no pair-kernel launch, each launch
+   re-run on its bucket against ``scan_bytes`` and timed.
 6. The stream lane: seven concurrent 1 MiB streams
    (``utils/stream_corpus.py``: benign form text, SQLi across a 64 KiB
    boundary, a split %-escape, a gzip body with an attack at its inflated
@@ -55,7 +59,9 @@ Phases (any failure ends the run with a non-zero exit code):
    child process (``chip_smoke.py --stream-cpu-reference``), on the CPU;
    verdicts identical, planted attacks found, none failed open, one
    kernel launch per wave.  While the child runs, every wave again on its
-   own inputs: bit-identical to ``scan_bytes``, timed.
+   own inputs, timed, and against its slice of one ``scan_bytes`` call
+   over all the waves' rows stacked: bit-identical.  The CPU child starts
+   with the script, so that it runs beside phases 1-5.
 8. The serve plane: ``python -m ingress_plus_tpu_torch.serve`` with its
    defaults as a child process (platform cuda, scan impl auto =
    ``pallas3``, one inline confirm worker, warmup on); once ``/readyz``
@@ -139,6 +145,31 @@ Phases (any failure ends the run with a non-zero exit code):
     equal to the CPU ``persist_lkg_scorer`` of head 2 (``.json`` and
     pointer bytes, equal arrays); every phase 8 health counter 0.  The
     server's launches re-timed at their shapes on the bundled tables.
+12. The native confirm twin, the tooling and the 2x pack; (a) and (e)
+    run between phases 5 and 6, beside phase 6's CPU child, and (b), (c)
+    and (d), whose rates move with the host's load, after phase 11.  (a)
+    The twin
+    against the Python detectors on every string the main path's confirm
+    stage passes them over phase 3's requests (a card pipeline's run,
+    recorded) and on a seeded fuzz: identical booleans.  (b)
+    ``python -m ingress_plus_tpu_torch.utils.microbench --confirm`` on the
+    card as two child processes, with the twin and with
+    ``IPT_NO_NATIVE_CONFIRM=1``: req/s, confirm and wall time per config,
+    the same verdict digest; then two servers with their defaults, one
+    with the twin and one without, both up, given phase 3's requests
+    (without the rerouted bodies) in turns (twin, Python, Python, twin):
+    every verdict phase 3's CPU verdict, wire req/s, p50/p99 and the
+    confirm stage's p50/p99.  (c) ``bench_scan_modes`` on the card: MB/s
+    per (B, L) and scan mode, each kernel bit-identical to its plain
+    version.  (d) ``python -m ingress_plus_tpu_torch.utils.evalf1
+    --platform cuda`` and ``--platform cpu`` as children side by side:
+    tp, fp, fn, tn and every other count equal.  (e) ``scale_rules(
+    load_bundled_rules(), 2.0)`` compiled by the port: its word tiles and
+    shared-memory slice logged, ``ByteScanner`` and ``StepScanner``
+    bit-identical to ``scan_pairs`` and ``scan_bytes`` at B=1024 x L in
+    {64, 2048} and B=8 x L=16384 (carried state, sticky match), timed;
+    phase 3's first 512 requests through a card pipeline on it, verdicts
+    equal to the CPU pipeline's, its launches re-run on their buckets.
 7. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
@@ -698,6 +729,7 @@ def bucket_inputs(pl, requests):
 
 
 def phase_pipeline(cr, dev: torch.device):
+    from ingress_plus_tpu_torch.models.libdetect import native_library
     from ingress_plus_tpu_torch.models.pipeline import (
         DetectionPipeline,
         PipelineStats,
@@ -710,6 +742,9 @@ def phase_pipeline(cr, dev: torch.device):
     if dev.type == "cuda" and gpu.engine.scan_impl != "pallas3":
         raise SystemExit("cuda pipeline runs %r, not pallas3"
                          % gpu.engine.scan_impl)
+    if native_library() is None:
+        raise SystemExit("the main path's confirm stage would run the "
+                         "Python detectors: IPT_NO_NATIVE_CONFIRM is set")
     run_pipeline(gpu, requests[:BATCH])          # warm-up (not counted)
     torch.cuda.synchronize()
     gpu.stats = PipelineStats()
@@ -745,9 +780,10 @@ def phase_pipeline(cr, dev: torch.device):
     missing = [L for L in gpu.L_BUCKETS if L not in st.bucket_rows]
     if missing:
         raise SystemExit("L-buckets never hit: %s" % missing)
-    log("pipeline: %d requests, identical verdicts cuda vs cpu, "
-        "%d kernel launches; %.1f req/s on the card (host clock, confirm "
-        "stage included; prep %.3fs engine %.3fs confirm %.3fs)"
+    log("pipeline: %d requests, identical verdicts cuda vs cpu (both "
+        "confirmed by the native twin), %d kernel launches; %.1f req/s on "
+        "the card (host clock, confirm stage included; prep %.3fs engine "
+        "%.3fs confirm %.3fs)"
         % (len(requests), launches, res["req_per_s_confirm_included"],
            res["prep_s"], res["engine_s"], res["confirm_s"]))
     inputs = bucket_inputs(gpu, requests)
@@ -759,20 +795,41 @@ def phase_pipeline(cr, dev: torch.device):
 
 def retime_launches(label: str, scanner, kernel, plain_fn, tables, inputs,
                     dev: torch.device, kind: str, inner: int = 20,
-                    reps: int = 10) -> dict:
+                    reps: int = 10, batch_plain: bool = False) -> dict:
     """A kernel at each launch a path made, on that launch's own inputs
     ``(tokens, lengths[, state, match])``: parity of the ``scanner``'s
     launch with the plain version (match and state), device time at the
     plan's segment length and, where the plan splits, at one segment,
-    the plain version's time (CUDA events around one host-driven call,
-    the same call that gives the parity reference) and the bound
-    (``kind`` "pair" or "step").  Totals are one pass over the path's
-    launches."""
+    the plain version's time (CUDA events around the host-driven call
+    that gives the parity reference) and the bound (``kind`` "pair" or
+    "step").  Totals are one pass over the path's launches.
+
+    ``batch_plain``: the launches share one L, and the plain version
+    runs once over all of their rows stacked (its cost is per step, so
+    one call costs about what one launch's did); each launch is held
+    against its slice of that call, whose time is the total's
+    ``plain_ms`` (the shapes then have none of their own)."""
     from ingress_plus_tpu_torch.ops.scan import from_numpy_u32
 
     W, K1 = tables.n_words, tables.class_table.shape[0]
     run = forced(kernel, scanner)
     by_shape: dict = {}
+    stacked = []        # batch_plain: each launch's (args, match, state)
+
+    def plain_call(args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref = plain_fn(*args)
+        b.record()
+        b.synchronize()
+        return ref, a.elapsed_time(b)
+
+    def check(B, L, got, ref):
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise SystemExit("%s: kernel disagrees with its plain version on "
+                             "a launch B=%d L=%d" % (label, B, L))
+
     for inp in inputs:
         tok_np, len_np = inp[0], np.asarray(inp[1], np.int32)
         args = [torch.from_numpy(np.ascontiguousarray(tok_np)).to(dev),
@@ -780,18 +837,15 @@ def retime_launches(label: str, scanner, kernel, plain_fn, tables, inputs,
         carried = len(inp) > 2
         if carried:
             args += [from_numpy_u32(inp[2], dev), from_numpy_u32(inp[3], dev)]
-        m, s = scanner(*args)
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        m_ref, s_ref = plain_fn(*args)
-        b.record()
-        b.synchronize()
         B, L = args[0].shape
-        if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
-            raise SystemExit("%s: kernel disagrees with its plain version on "
-                             "a launch B=%d L=%d" % (label, B, L))
+        got = scanner(*args)
+        plain_ms = 0.0
+        if batch_plain:
+            stacked.append((args, got))
+        else:
+            torch.cuda.synchronize()
+            ref, plain_ms = plain_call(args)
+            check(B, L, got, ref)
         bd = bound(len_np, L, W, K1, 1, carried, kind)
         tm = timed_plan(lambda seg: run(*args, segment=seg), B, L, W,
                         inner, reps)
@@ -803,26 +857,40 @@ def retime_launches(label: str, scanner, kernel, plain_fn, tables, inputs,
         agg["launches"] += 1
         agg["ms"] += tm["ms"]
         agg["one_segment_ms"] += tm["one_segment_ms"]
-        agg["plain_ms"] += a.elapsed_time(b)
+        agg["plain_ms"] += plain_ms
         for k in ("bound_ms", "ops_ms", "bytes_ms"):
             agg[k] += bd[k]
     total = {k: sum(a[k] for a in by_shape.values())
              for k in ("launches", "ms", "one_segment_ms", "plain_ms",
                        "bound_ms", "ops_ms", "bytes_ms")}
+    if stacked:
+        torch.cuda.synchronize()
+        (m_ref, s_ref), total["plain_ms"] = plain_call(
+            [torch.cat(col) for col in zip(*(a for a, _ in stacked))])
+        row = 0
+        for args, got in stacked:
+            B, L = args[0].shape
+            check(B, L, got, (m_ref[row:row + B], s_ref[row:row + B]))
+            row += B
+        total["plain_rows"] = row
     total["bound_by"] = ("operations" if total["ops_ms"] >= total["bytes_ms"]
                          else "bytes")
     for key, a in sorted(by_shape.items(),
                          key=lambda kv: (kv[1]["L"], kv[1]["B"])):
         log("%s B=%d L=%d G=%d (%d segments): %d launches, bit-identical; "
-            "%.4f ms device (one segment %.4f ms; plain %.3f ms, bound "
-            "%.5f ms, %.1fx)"
+            "%.4f ms device (one segment %.4f ms; plain %s; bound %.5f ms, "
+            "%.1fx)"
             % (label, a["B"], a["L"], a["G"], a["segments"], a["launches"],
-               a["ms"], a["one_segment_ms"], a["plain_ms"], a["bound_ms"],
+               a["ms"], a["one_segment_ms"],
+               "in the stacked call" if batch_plain
+               else "%.3f ms" % a["plain_ms"], a["bound_ms"],
                a["ms"] / a["bound_ms"]))
     log("%s total: %d launches, %.4f ms device (one segment %.4f ms; plain "
-        "%.1f ms, bound %.5f ms by %s)"
+        "%.1f ms%s, bound %.5f ms by %s)"
         % (label, total["launches"], total["ms"], total["one_segment_ms"],
-           total["plain_ms"], total["bound_ms"], total["bound_by"]))
+           total["plain_ms"],
+           " in one call over all %d rows" % total["plain_rows"]
+           if batch_plain else "", total["bound_ms"], total["bound_by"]))
     return {"shapes": by_shape, "total": total}
 
 
@@ -1030,10 +1098,12 @@ def take_pipeline(cr, dev: torch.device, requests, want) -> dict:
     """The batch path on ``scan_impl="take"``: on a card the step kernel
     (``StepScanner``), as ``pallas`` runs it.  Its verdicts must equal
     phase 3's CPU verdicts; the step kernel launches once per bucket and
-    the pair kernel not at all."""
+    the pair kernel not at all.  Each launch is then re-run on its
+    bucket, against ``scan_bytes``, timed."""
     from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
-    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
+    from ingress_plus_tpu_torch.ops.scan import scan_bytes
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
 
     gpu = DetectionPipeline(cr, device=dev, scan_impl="take",
                             fail_open=False)
@@ -1057,14 +1127,28 @@ def take_pipeline(cr, dev: torch.device, requests, want) -> dict:
         "pipeline, %d step-kernel launches (= buckets), no pair-kernel "
         "launch; %.1f req/s (host clock, confirm included)"
         % (len(requests), launches, len(requests) / wall))
+    tables = gpu.engine.tables.scan
     return {"requests": len(requests), "identical_verdicts": len(requests),
-            "launches": launches, "wall_s": wall}
+            "launches": launches, "wall_s": wall,
+            "retimed": retime_launches(
+                "take path", StepScanner(tables), STEP_SCAN,
+                lambda t, n: scan_bytes(tables, t, n), tables,
+                bucket_inputs(gpu, requests), dev, "step")}
 
 
-def phase_stream(cr, dev: torch.device) -> tuple:
+def stream_cpu_child() -> subprocess.Popen:
+    """The stream lane's CPU reference (``--stream-cpu-reference``) as a
+    child process; phase 6 reads it."""
+    return subprocess.Popen(
+        [sys.executable, __file__, "--stream-cpu-reference"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_stream(cr, dev: torch.device, child: subprocess.Popen) -> tuple:
     """Seven concurrent 1 MiB streams through ``StreamEngine`` on the card
-    and on the CPU (BASELINE config #5), then every wave again on its own
-    inputs.  Returns the result and the waves' inputs."""
+    and on the CPU (BASELINE config #5: the ``child`` of
+    :func:`stream_cpu_child`), then every wave again on its own inputs.
+    Returns the result and the waves' inputs."""
     from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
     from ingress_plus_tpu_torch.ops.scan import scan_bytes
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
@@ -1103,17 +1187,14 @@ def phase_stream(cr, dev: torch.device) -> tuple:
     if launches <= 0 or launches != st.waves or launches != len(eng.recorded):
         raise SystemExit("the stream lane launched the step kernel %d times "
                          "for %d waves" % (launches, st.waves))
-    # the CPU reference runs in a child process (one thread) while this
-    # one re-times the waves; it is waited for, or killed, before return
-    child = subprocess.Popen(
-        [sys.executable, __file__, "--stream-cpu-reference"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # the CPU reference runs in a child process (one thread), started
+    # with the script; it is waited for, or killed, before return
     try:
         tables = gpu.engine.tables.scan
         retimed = retime_launches(
             "stream wave", eng.scanner(), STEP_SCAN,
             lambda t, n, s, m: scan_bytes(tables, t, n, s, m), tables,
-            eng.recorded, dev, "step", inner=10, reps=5)
+            eng.recorded, dev, "step", inner=10, reps=5, batch_plain=True)
         out, err = child.communicate(timeout=900)
     finally:
         if child.poll() is None:
@@ -1247,12 +1328,14 @@ def wire_key(request_id: str, resp: dict) -> str:
 
 
 class ServeChild:
-    """``python -m ingress_plus_tpu_torch.serve`` with ``args`` as a child
-    process on a temporary socket and a free HTTP port, ready once
-    ``/readyz`` answers 200; stopped (terminate, then kill) on exit."""
+    """``python -m ingress_plus_tpu_torch.serve`` with ``args`` (and
+    ``env``, default this process's environment) as a child process on a
+    temporary socket and a free HTTP port, ready once ``/readyz`` answers
+    200; stopped (terminate, then kill) on exit."""
 
-    def __init__(self, *args: str):
+    def __init__(self, *args: str, env: dict = None):
         self.args = args
+        self.env = env
 
     def __enter__(self):
         self.tmp = tempfile.mkdtemp(prefix="ipt")
@@ -1267,7 +1350,7 @@ class ServeChild:
                 [sys.executable, "-m", "ingress_plus_tpu_torch.serve",
                  "--socket", self.sock, "--http-port", str(self.port),
                  *self.args],
-                stdout=logf, stderr=subprocess.STDOUT,
+                stdout=logf, stderr=subprocess.STDOUT, env=self.env,
                 cwd=os.path.dirname(os.path.abspath(__file__)))
         try:
             t0 = time.perf_counter()
@@ -2606,6 +2689,363 @@ def phase_fault_matrix(dev: torch.device) -> dict:
             "not_ported": rep["not_ported"], "wall_s": wall}
 
 
+# ---------------------------------- phase 12: native confirm and tooling
+
+#: phase 12 (b): the confirm bench children's corpus and best-of
+CONFIRM_REQS = 1024
+CONFIRM_ITERS = 3
+#: phase 12 (d): the F1 gate's corpus size, card and CPU children alike
+F1_N = 2048
+#: phase 12 (e): the scaled pack's factor, the kernels' shapes on it, and
+#: the requests its pipelines take (phase 3's first)
+SCALE_FACTOR = 2.0
+SCALE_SHAPES = ((SCAN_B, 64), (SCAN_B, 2048), (SPLIT_B, 16384))
+SCALE_REQUESTS = 512
+F1_COUNTS = ("n", "tp", "fp", "fn", "tn", "blocked", "precision", "recall",
+             "f1", "per_class_recall", "per_family")
+
+
+def repo_child(args, env=None) -> subprocess.Popen:
+    """``python -m <args>`` from the repository root, output captured."""
+    return subprocess.Popen(
+        [sys.executable, "-m", *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def child_json(what: str, proc: subprocess.Popen, timeout: float) -> dict:
+    """The last stdout line of a ``repo_child`` as JSON; killed, and the
+    run failed, on a timeout or a non-zero exit."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise SystemExit("%s failed (rc %s):\n%s" % (what, proc.returncode,
+                                                     err[-4000:]))
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def confirm_strings(pl, requests) -> dict:
+    """Every argument string the confirm stage hands ``detect_sqli`` and
+    ``detect_xss`` over ``requests`` (one run of ``pl``), by detector."""
+    from ingress_plus_tpu_torch.models import libdetect
+
+    seen = {"sqli": [], "xss": []}
+    real = {"sqli": libdetect.detect_sqli, "xss": libdetect.detect_xss}
+
+    def recorder(kind):
+        def rec(data, max_len=4096):
+            seen[kind].append(bytes(data))
+            return real[kind](data, max_len)
+        return rec
+
+    libdetect.detect_sqli = recorder("sqli")
+    libdetect.detect_xss = recorder("xss")
+    try:
+        run_pipeline(pl, requests)
+    finally:
+        libdetect.detect_sqli = real["sqli"]
+        libdetect.detect_xss = real["xss"]
+    return seen
+
+
+def fuzz_strings(seed: int) -> list:
+    """Seeded fuzz over a grammar-shaped alphabet (quotes, comments,
+    keywords, operators) and NUL-free binary strings."""
+    words = [b"union", b"select", b"from", b"or", b"and", b"sleep", b"like",
+             b"<script", b"onload", b"javascript:", b"data:", b"base64",
+             b"&#", b"0x41", b"--", b"/*", b"*/", b"''", b'""']
+    alphabet = list(b"'\"`\\-#/*;=<>()|&!~^@,. \t\n0123456789abcxyzOSUN_$")
+    rng = random.Random(seed)
+    out = []
+    for _ in range(3000):
+        out.append(b"".join(
+            rng.choice(words) if rng.random() < 0.3
+            else bytes([rng.choice(alphabet)])
+            for _ in range(rng.randint(1, 24))))
+    for _ in range(500):
+        out.append(bytes(rng.randrange(1, 256)
+                         for _ in range(rng.randint(0, 200))))
+    return out
+
+
+def native_parity(dev: torch.device, requests) -> dict:
+    """(a) The twin against the Python detectors on every string the
+    main path's confirm stage passes them over ``requests``, plus the
+    seeded fuzz: identical booleans, or fail."""
+    from ingress_plus_tpu_torch.models import libdetect
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    lib = libdetect.native_library()
+    if lib is None:
+        raise SystemExit("the native confirm twin is switched off "
+                         "(IPT_NO_NATIVE_CONFIRM is set)")
+    seen = confirm_strings(DetectionPipeline(load_pack(), device=dev,
+                                             fail_open=False), requests)
+    fuzz = fuzz_strings(SEED)
+    python = {"sqli": libdetect.detect_sqli_py,
+              "xss": libdetect.detect_xss_py}
+    native = {"sqli": lib.ipt_detect_sqli, "xss": lib.ipt_detect_xss}
+    res = {}
+    for kind in ("sqli", "xss"):
+        unique = sorted(set(seen[kind])) + fuzz
+        nul, hits, bad = 0, 0, []
+        for data in unique:
+            window = data[:4096]
+            if b"\x00" in window:
+                nul += 1            # the dispatch's Python path
+                continue
+            want = python[kind](data)
+            if bool(native[kind](window, len(window))) != want:
+                bad.append(data[:80])
+            hits += want
+        if bad:
+            raise SystemExit("native %s differs from Python on %d strings, "
+                             "first %r" % (kind, len(bad), bad[0]))
+        res[kind] = {"calls": len(seen[kind]),
+                     "unique": len(set(seen[kind])), "fuzz": len(fuzz),
+                     "nul_windows": nul, "true": hits}
+    log("native confirm twin: identical to the Python detectors on every "
+        "string the main path's confirm stage passed them (%d requests) "
+        "and on %d fuzz strings: %s" % (len(requests), len(fuzz),
+                                        json.dumps(res)))
+    return res
+
+
+def confirm_ab(platform: str = "cuda") -> dict:
+    """(b) ``microbench --confirm`` on ``platform`` (the card) twice, as
+    child processes: with the twin and with ``IPT_NO_NATIVE_CONFIRM=1``."""
+    out = {}
+    for tag, off in (("native", False), ("python", True)):
+        env = dict(os.environ)
+        env.pop("IPT_NO_NATIVE_CONFIRM", None)
+        if off:
+            env["IPT_NO_NATIVE_CONFIRM"] = "1"
+        t0 = time.perf_counter()
+        r = child_json("microbench --confirm (%s)" % tag, repo_child(
+            ["ingress_plus_tpu_torch.utils.microbench", "--confirm",
+             "--reqs", str(CONFIRM_REQS), "--iters", str(CONFIRM_ITERS),
+             "--platform", platform], env), 600)
+        r["child_s"] = time.perf_counter() - t0
+        if r["device"] != platform or r["native"] != (not off):
+            raise SystemExit("microbench --confirm (%s) ran device %s, "
+                             "native %s" % (tag, r["device"], r["native"]))
+        out[tag] = r
+        for cfg in ("mixed/off", "mixed/qr+memo", "flood/qr+memo"):
+            c = r[cfg]
+            log("confirm A/B %s %s: %.1f req/s, confirm_us %d of %d us "
+                "wall (%.1f%%), memo hits %d"
+                % (tag, cfg, c["req_per_s"], c["confirm_ms"] * 1e3,
+                   c["wall_ms"] * 1e3, 100 * c["confirm_ms"] / c["wall_ms"],
+                   c["memo_hits"]))
+    if out["native"]["verdicts_sha256"] != out["python"]["verdicts_sha256"]:
+        raise SystemExit("microbench --confirm: verdicts differ between the "
+                         "native twin and the Python detectors")
+    log("confirm A/B: the same verdicts (%s) with the twin and without"
+        % out["native"]["verdicts_sha256"][:16])
+    return out
+
+
+def serve_confirm_ab(requests, want) -> dict:
+    """(b) on the wire: two servers with their defaults, one with the
+    twin and one with ``IPT_NO_NATIVE_CONFIRM=1``, both up at once and
+    given phase 3's requests (without the bodies the Batcher reroutes) in
+    turns: twin, Python, Python, twin.  Every verdict is phase 3's CPU
+    verdict; per server the waves' rates and latencies and the confirm
+    stage's p50/p99 from its ``/metrics``."""
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+    from ingress_plus_tpu_torch.utils.trace import (
+        stage_breakdown_from_metrics,
+    )
+
+    plan_of = SimpleNamespace(OVERSIZE_THRESHOLD=Batcher.OVERSIZE_THRESHOLD)
+    calm = [i for i, r in enumerate(requests)
+            if Batcher._reroute_plan(plan_of, r) is None]
+    reqs, wants = [requests[i] for i in calm], [[want[i] for i in calm]]
+    env = dict(os.environ)
+    env.pop("IPT_NO_NATIVE_CONFIRM", None)
+    out = {"requests": len(reqs), "native": {"waves": []},
+           "python": {"waves": []}}
+    with ServeChild(env=env) as twin, \
+            ServeChild(env=dict(env, IPT_NO_NATIVE_CONFIRM="1")) as py:
+        servers = {"native": twin, "python": py}
+        for tag in ("native", "python", "python", "native"):
+            out[tag]["waves"].append(
+                request_wave(servers[tag].sock, reqs, wants))
+        for tag, srv in servers.items():
+            metrics = srv.metrics()
+            check_serve_metrics("confirm A/B (%s)" % tag, metrics)
+            out[tag]["confirm_stage"] = stage_breakdown_from_metrics(
+                metrics)["confirm"]
+    for tag in ("native", "python"):
+        w, c = out[tag]["waves"], out[tag]["confirm_stage"]
+        log("serve confirm A/B %s: %s req/s on the wire, p50 %s ms, p99 %s "
+            "ms; confirm stage p50 %.0f us p99 %.0f us"
+            % (tag, " / ".join("%.1f" % x["wire_req_per_s"] for x in w),
+               " / ".join("%.2f" % x["p50_ms"] for x in w),
+               " / ".join("%.2f" % x["p99_ms"] for x in w),
+               c["p50_us"], c["p99_us"]))
+    return out
+
+
+def f1_card_vs_cpu(platform: str = "cuda") -> dict:
+    """(d) ``evalf1 --platform cuda`` (``platform``) and ``--platform
+    cpu`` as child processes side by side: tp, fp, fn, tn (and every
+    other count) equal."""
+    # the CPU child on one thread, so that it leaves the card child's
+    # host cores alone
+    procs = [repo_child(["ingress_plus_tpu_torch.utils.evalf1", "--n",
+                         str(F1_N), "--platform", p],
+                        dict(os.environ, OMP_NUM_THREADS="1")
+                        if p == "cpu" else None)
+             for p in (platform, "cpu")]
+    card, cpu = [child_json("evalf1 child", proc, 600) for proc in procs]
+    if (card["platform"], cpu["platform"]) != (platform, "cpu"):
+        raise SystemExit("evalf1 ran on %s and %s" % (card["platform"],
+                                                      cpu["platform"]))
+    diff = [k for k in F1_COUNTS if card[k] != cpu[k]]
+    if diff:
+        raise SystemExit("evalf1: the card's %s differ from the CPU's"
+                         % diff)
+    log("evalf1 n=%d: card = cpu: tp %d fp %d fn %d tn %d, F1 %.4f; "
+        "%.1f req/s on the card, %.1f on the cpu (children side by side)"
+        % (card["n"], card["tp"], card["fp"], card["fn"], card["tn"],
+           card["f1"], card["req_s"], cpu["req_s"]))
+    return {"card": {k: card[k] for k in F1_COUNTS + ("req_s",)},
+            "cpu_req_s": cpu["req_s"]}
+
+
+def scaled_pack(dev: torch.device, requests) -> dict:
+    """(e) The 2x pack: ``scale_rules(load_bundled_rules(), 2.0)``
+    compiled by the port; both kernels against their plain versions at
+    ``SCALE_SHAPES`` (carried state and sticky match), timed; a card
+    pipeline on it over phase 3's first requests against the CPU's, its
+    launches re-run on their buckets."""
+    from ingress_plus_tpu_torch.compiler import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.packgen import scale_rules
+    from ingress_plus_tpu_torch.compiler.sigpack import load_bundled_rules
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
+    from ingress_plus_tpu_torch.ops.scan import (
+        ScanTables,
+        from_numpy_u32,
+        scan_bytes,
+        scan_pairs,
+    )
+    from ingress_plus_tpu_torch.ops.segments import WORD_TILE
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+
+    t0 = time.perf_counter()
+    cr = compile_ruleset(scale_rules(load_bundled_rules(), SCALE_FACTOR))
+    compile_s = time.perf_counter() - t0
+    tables = ScanTables.from_bitap(cr.tables, dev)
+    W, K1 = tables.n_words, tables.class_table.shape[0]
+    tiles = -(-W // WORD_TILE)
+    res = {"factor": SCALE_FACTOR, "rules": cr.n_rules, "W": W, "K1": K1,
+           "word_tiles": tiles, "last_tile_words": W - WORD_TILE * (tiles - 1),
+           "table_slice_bytes": K1 * WORD_TILE * 4, "compile_s": compile_s,
+           "shapes": []}
+    log("2x pack: %d rules, W=%d words = %d word tiles (the last holds %d "
+        "words), K+1=%d: each block's class-table slice %d B of shared "
+        "memory; compiled in %.2fs"
+        % (cr.n_rules, W, tiles, res["last_tile_words"], K1,
+           res["table_slice_bytes"], compile_s))
+    rng = np.random.default_rng(SEED + 12)
+    kernels = {"pair_scan": (PAIR_SCAN, ByteScanner(tables), scan_pairs,
+                             "pair"),
+               "step_scan": (STEP_SCAN, StepScanner(tables), scan_bytes,
+                             "step")}
+    for B, L in SCALE_SHAPES:
+        toks_np, len_np, match_np, state_np = (
+            scan_inputs if B == SCAN_B else split_inputs)(L, W, rng)
+        args = (torch.from_numpy(toks_np).to(dev),
+                torch.from_numpy(len_np).to(dev),
+                from_numpy_u32(state_np, dev), from_numpy_u32(match_np, dev))
+        for name, (kernel, scanner, plain, kind) in kernels.items():
+            m_ref, s_ref = plain(tables, *args)
+            m, s = scanner(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
+                raise SystemExit(
+                    "2x pack: %s disagrees with its plain version at B=%d "
+                    "L=%d: match diff words=%d state diff words=%d"
+                    % (name, B, L, int((m != m_ref).sum()),
+                       int((s != s_ref).sum())))
+            err = max(int((m.long() - m_ref.long()).abs().max()),
+                      int((s.long() - s_ref.long()).abs().max()))
+            run = forced(kernel, scanner)
+            tm = timed_plan(lambda seg: run(*args, segment=seg), B, L, W)
+            plain_ms = time_ms(lambda: plain(tables, *args),
+                               reps=2 if L >= 8192 else 5)
+            b = bound(len_np, L, W, K1, 1, carried=True, kernel=kind)
+            res["shapes"].append({"kernel": name, "B": B, "L": L, **tm,
+                                  "plain_ms": plain_ms, "max_abs_err": err,
+                                  **b})
+            log("2x pack %s B=%d L=%d W=%d K1=%d G=%d (%d segments): "
+                "bit-identical match+state; %.4f ms device (one segment "
+                "%.4f ms; plain %.3f ms, bound %.4f ms by %s/%s, %.2fx)"
+                % (name, B, L, W, K1, tm["G"], tm["segments"], tm["ms"],
+                   tm["one_segment_ms"], plain_ms, b["bound_ms"],
+                   b["bound_by"], b["pipe"], tm["ms"] / b["bound_ms"]))
+    reqs = requests[:SCALE_REQUESTS]
+    gpu = DetectionPipeline(cr, device=dev, fail_open=False)
+    cpu = DetectionPipeline(cr, device="cpu", fail_open=False)
+    want = [verdict_key(v) for v in run_pipeline(cpu, reqs)]
+    PAIR_SCAN.launches = 0                       # count this path only
+    t1 = time.perf_counter()
+    got = run_pipeline(gpu, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = PAIR_SCAN.launches
+    check_verdicts("2x pack pipeline", got, want)
+    inputs = bucket_inputs(gpu, reqs)
+    if launches <= 0 or launches != len(inputs):
+        raise SystemExit("the 2x pack pipeline launched the pair kernel %d "
+                         "times for %d buckets" % (launches, len(inputs)))
+    log("2x pack pipeline: %d requests, identical verdicts cuda vs cpu, %d "
+        "pair-kernel launches (= buckets); %.1f req/s (host clock, confirm "
+        "included, first run)" % (len(reqs), launches, len(reqs) / wall))
+    res.update(requests=len(reqs), identical_verdicts=len(reqs),
+               launches=launches, wall_s=wall,
+               attacks=sum(v.attack for v in got))
+    res["retimed"] = retime_launches(
+        "2x pack path", ByteScanner(tables), PAIR_SCAN,
+        lambda t, n: scan_pairs(tables, t, n), tables, inputs, dev, "pair")
+    return res
+
+
+def phase_native_kernels(dev: torch.device, requests) -> dict:
+    """Phase 12 (a) and (e) (the module docstring): checks and device
+    times, run beside phase 6's CPU child."""
+    t0 = time.perf_counter()
+    res = {"native": native_parity(dev, requests),
+           "scaled": scaled_pack(dev, requests)}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def phase_tooling_ab(dev: torch.device, requests, want) -> dict:
+    """Phase 12 (b), (c) and (d): rates that move with the host's load,
+    run after phase 11 with nothing else running."""
+    from ingress_plus_tpu_torch.utils.microbench import bench_scan_modes
+
+    t0 = time.perf_counter()
+    res = {"confirm_ab": confirm_ab(dev.type),
+           "serve_confirm_ab": serve_confirm_ab(requests, want)}
+    scan = bench_scan_modes(device=dev)
+    if not scan["interpret_parity"]["ok"]:
+        raise SystemExit("microbench --scan: a kernel differs from its "
+                         "plain version: %s" % scan["interpret_parity"])
+    res["scan_modes"] = scan
+    res["f1"] = f1_card_vs_cpu(dev.type)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
@@ -2619,6 +3059,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    child = None if kernels_only else stream_cpu_child()
+    try:
+        return run_phases(kernels_only, child)
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def run_phases(kernels_only: bool, stream_child) -> int:
+    """Every phase (the module docstring); ``stream_child`` is phase 6's
+    CPU reference, already running."""
+    from ingress_plus_tpu_torch.models import libdetect
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
     from ingress_plus_tpu_torch.weights import load_pack
@@ -2627,13 +3080,20 @@ def main() -> int:
     log("torch %s cuda %s on %s (%d cards)" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
-    kernels = (PAIR_SCAN, STEP_SCAN)
-    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source
-        libs = list(pool.map(lambda k: k.lib.build(verbose=True), kernels))
+    sources = (PAIR_SCAN.lib, STEP_SCAN.lib, libdetect._TWIN)
+
+    def build(lib):
+        t = time.perf_counter()
+        return lib.build(verbose=True), time.perf_counter() - t
+
+    # one compiler per source (nvcc for the kernels, g++ for the twin)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build, sources))
     dev = torch.device("cuda")
-    for k, lib in zip(kernels, libs):
-        k.lib.load(dev)
-        log("built %s" % lib.name)
+    for src, (lib, secs) in zip(sources, built):
+        src.load(dev)
+        log("built %s with %s in %.1fs" % (lib.name, src.compiler, secs))
+    libs = [path for path, _ in built]
     log("build %.1fs" % (time.perf_counter() - t0))
     smi = nvidia_smi_line()
     log("card: %s" % smi)
@@ -2660,7 +3120,8 @@ def main() -> int:
     main_path = phase_main_shapes(kern["tables"], inputs, dev)
     step = phase_step_kernel(kern["tables"], dev)
     pallas = phase_pallas_pipeline(cr, dev, requests, want)
-    stream, stream_waves = phase_stream(cr, dev)
+    tooling = phase_native_kernels(dev, requests)
+    stream, stream_waves = phase_stream(cr, dev, stream_child)
     serve, serve_shapes, pool = phase_serve(requests, want,
                                             stream["cpu_keys"], smi)
     log("serve " + json.dumps(serve))
@@ -2675,6 +3136,11 @@ def main() -> int:
     log("post " + json.dumps(post, default=str))
     post_k = phase_serve_kernels(kern["tables"], post_shapes, pool, dev,
                                  "post")
+    late = phase_tooling_ab(dev, requests, want)
+    tooling.update(late, seconds=tooling["seconds"] + late["seconds"],
+                   twin_build_s=built[2][1])
+    log("native confirm and tooling " + json.dumps(
+        {k: v for k, v in tooling.items() if k != "scan_modes"}))
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -2685,12 +3151,14 @@ def main() -> int:
         "stream": stream, "serve": serve, "serve_kernels": serve_k,
         "rollout": rollout, "rollout_kernels": rollout_k,
         "fault_matrix": fault_matrix, "post": post, "post_kernels": post_k,
-        "sass": sass,
+        "native_tooling": tooling, "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
+    scaled = tooling["scaled"]
     step_paths = {"stream": stream["retimed"]["total"],
-                  "pallas_batch": pallas["retimed"]["total"]}
+                  "pallas_batch": pallas["retimed"]["total"],
+                  "take_batch": pallas["take"]["retimed"]["total"]}
     step_tot = {k: sum(p[k] for p in step_paths.values())
                 for k in ("launches", "ms", "one_segment_ms", "plain_ms",
                           "bound_ms", "ops_ms", "bytes_ms")}
@@ -2707,6 +3175,8 @@ def main() -> int:
         segment_rows("stream lane", stream["retimed"]["shapes"].values())
         + segment_rows("pallas batch path",
                        pallas["retimed"]["shapes"].values())
+        + segment_rows("take batch path",
+                       pallas["take"]["retimed"]["shapes"].values())
         + segment_rows("phase 4", step["shapes"]))
     source = {"pair_scan": ("ingress_plus_tpu_torch/csrc/pair_scan.cu",
                             "ingress_plus_tpu/ops/pallas_scan.py:270"),
@@ -2794,7 +3264,7 @@ def main() -> int:
         shape="the batch path's %d launches, raw_byte, summed"
               % tot["launches"],
         segments=pair_segments), entry(
-        "step_scan", "library: stream lane and pallas batch path "
+        "step_scan", "library: stream lane, pallas and take batch paths "
                      "(phases 5, 6)", step_tot,
         max(s["max_abs_err"] for s in step["shapes"]),
         launches_by_path={"stream": stream["launches"],
@@ -2802,12 +3272,32 @@ def main() -> int:
                           "take_batch": pallas["take"]["launches"]},
         parity="bit-identical match and state: B=%d x L in %s, B=%d x L in "
                "%s split and unsplit; edges %s; chained carry %s; every "
-               "stream wave and pallas bucket"
+               "pallas and take bucket and every stream wave"
                % (SCAN_B, list(SCAN_LS), SPLIT_B, list(SPLIT_LS),
                   step["edges"], step["chain"]),
-        shape="the stream lane's %d waves and the pallas batch path's %d "
-              "launches, summed" % (stream["launches"], pallas["launches"]),
-        segments=step_segments)]}), flush=True)
+        shape="the stream lane's %d waves, the pallas batch path's %d "
+              "launches and the take batch path's %d, summed"
+              % (stream["launches"], pallas["launches"],
+                 pallas["take"]["launches"]),
+        plain_over="one call per pallas and take bucket; one call over "
+                   "the %d rows of all %d stream waves stacked"
+                   % (stream["retimed"]["total"]["plain_rows"],
+                      stream["launches"]),
+        segments=step_segments), entry(
+        "pair_scan", "library: pallas3 batch path on the %gx pack "
+                     "(phase 12)" % SCALE_FACTOR, scaled["retimed"]["total"],
+        max(r["max_abs_err"] for r in scaled["shapes"]),
+        parity="bit-identical match and state on the %gx pack's tables "
+                  "(W=%d, K+1=%d): both kernels at %s carried, and every "
+                  "launch of the path"
+                  % (SCALE_FACTOR, scaled["W"], scaled["K1"],
+                     ["%dx%d" % sh for sh in SCALE_SHAPES]),
+        shape="the %d launches of phase 3's first %d requests on the %gx "
+              "pack, summed" % (scaled["launches"], scaled["requests"],
+                                SCALE_FACTOR),
+        segments=segment_rows("2x pack path",
+                              scaled["retimed"]["shapes"].values()))]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,32 @@ meaningful* in the injection language (SURVEY.md §2.2).  This module is a
 behavioral re-implementation in the same spirit (tokenize, then accept only
 token patterns that continue/compose a SQL expression or active HTML), not
 a port: the grammars are written fresh, sized to the corpus the F1 gate
-uses.  This package carries the Python detectors only.
+uses.
+
+Two builds of the detectors, pinned to each other by
+``tests/test_torch_native_confirm.py``: the Python ones here
+(``detect_sqli_py``, ``detect_xss_py``), and a C++ twin,
+``csrc/libdetect.cc`` (a byte copy of the JAX package's
+``native/confirm/libdetect.cc``), which ``g++`` builds at first use with
+that package's Makefile flags into ``ingress_plus_tpu_torch/build/``
+(``ops/cuda_build.py``) and ``ctypes`` loads.  ``detect_sqli`` and
+``detect_xss`` dispatch as the JAX package does: the twin whenever its
+``max_len`` window holds no NUL (``c_char_p`` data), the Python
+detectors for a NUL window, and the Python detectors alone when
+``IPT_NO_NATIVE_CONFIRM`` is set (read at each call).  The twin keeps no
+mutable static state, so the pooled confirm workers may call it at once.
+It is loaded with ``ctypes.PyDLL``, so a call keeps the interpreter lock
+(the JAX package's ``ctypes.CDLL`` releases it): a call lasts
+microseconds, and a thread that releases the lock that often waits to
+take it back behind every busy Python thread of the process (the serve
+plane's loop, lane and exporter threads).
+
+One difference from the JAX package, on purpose: there, a missing or
+unloadable library falls back to Python in silence.  Here a failed build
+or load raises, with the compiler's output, unless
+``IPT_NO_NATIVE_CONFIRM`` is set, so a run cannot hide which confirm
+stage it ran.  ``DetectionPipeline`` builds the twin when it is
+constructed (:func:`native_library`), so no request pays for the build.
 
 ``detect_sqli`` evaluates the input in three contexts (bare, breaking out
 of a single-quoted string, double-quoted) like libdetection's context
@@ -23,8 +48,12 @@ constructs: script/active tags, event-handler attributes, javascript: URIs.
 
 from __future__ import annotations
 
+import ctypes
+import os
 import re
 from typing import List, Tuple
+
+from ingress_plus_tpu_torch.ops.cuda_build import CSRC, GXX_FLAGS, KernelLibrary
 
 # ------------------------------------------------------------------ SQLi
 
@@ -250,11 +279,40 @@ def detect_xss_py(data: bytes, max_len: int = 4096) -> bool:
     return False
 
 
+# ------------------------------------------------- native dispatch (C++)
+
+_TWIN = KernelLibrary(
+    CSRC / "libdetect.cc",
+    {"ipt_detect_sqli": ([ctypes.c_char_p, ctypes.c_size_t], ctypes.c_int),
+     "ipt_detect_xss": ([ctypes.c_char_p, ctypes.c_size_t], ctypes.c_int)},
+    init=None, compiler="g++", flags=GXX_FLAGS, hold_gil=True)
+
+
+def native_library():
+    """The C++ twin, built and loaded at first use (behind a lock), or
+    None when ``IPT_NO_NATIVE_CONFIRM`` is set.  A failed build or load
+    raises."""
+    if os.environ.get("IPT_NO_NATIVE_CONFIRM"):
+        return None
+    return _TWIN.load()
+
+
 def detect_sqli(data: bytes, max_len: int = 4096) -> bool:
-    """Strict-grammar SQLi check."""
+    """Strict-grammar SQLi check (the C++ twin unless the window has a
+    NUL or ``IPT_NO_NATIVE_CONFIRM`` is set)."""
+    window = data[:max_len]  # only the scanned window matters for the guard
+    lib = native_library()
+    if lib is not None and b"\x00" not in window:
+        # c_char_p data: a window with a NUL takes the Python path (rare:
+        # the normalizers strip or replace NULs upstream)
+        return bool(lib.ipt_detect_sqli(window, len(window)))
     return detect_sqli_py(data, max_len)
 
 
 def detect_xss(data: bytes, max_len: int = 4096) -> bool:
-    """Strict-ish XSS check."""
+    """Strict-ish XSS check (dispatched as :func:`detect_sqli`)."""
+    window = data[:max_len]
+    lib = native_library()
+    if lib is not None and b"\x00" not in window:
+        return bool(lib.ipt_detect_xss(window, len(window)))
     return detect_xss_py(data, max_len)

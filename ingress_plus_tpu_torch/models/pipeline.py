@@ -46,6 +46,7 @@ from ingress_plus_tpu_torch.models.confirm_plane import (
     launch_confirm,
 )
 from ingress_plus_tpu_torch.models.engine import DetectionEngine
+from ingress_plus_tpu_torch.models.libdetect import native_library
 from ingress_plus_tpu_torch.models.rule_stats import RuleStats
 from ingress_plus_tpu_torch.ops.scan import pad_rows
 from ingress_plus_tpu_torch.serve.normalize import (
@@ -412,6 +413,9 @@ class DetectionPipeline:
         # (inline, thread-free) pool is simply dropped.
         self.confirm_pool = ConfirmPool(n_workers=confirm_workers,
                                         hang_budget_s=confirm_hang_budget_s)
+        # the confirm stage's C++ twin (models/libdetect.py): built and
+        # loaded now, so no request pays for it; a failed build raises
+        native_library()
         #: per-cycle flood-memo capacity; 0 disables memoization
         self.confirm_memo_entries = int(confirm_memo_entries)
         # cross-cycle verdict cache (docs/RETUNE.md): opt-in (0 = off,

@@ -1,12 +1,15 @@
-"""Build, load and bind the port's hand-written CUDA kernels.
+"""Build, load and bind the port's native code.
 
-Each kernel source under ``csrc/`` has a plain C interface.  At first use
+Each source under ``csrc/`` has a plain C interface and is compiled at
+first use into a shared library under ``ingress_plus_tpu_torch/build/``,
+named after the source and keyed by the hash of the source, its shared
+headers, the compiler and the flags, then loaded with ``ctypes``.  The
+CUDA kernels (``*.cu``, with the ``csrc/*.cuh`` headers) go through
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles it into a shared library under
-``ingress_plus_tpu_torch/build/``, named after the source and keyed by
-the hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags, and ``ctypes`` loads it.  Nothing is built when a module is
-imported.
+-Xcompiler -fPIC``; the host code of the native confirm twin
+(``csrc/libdetect.cc``) goes through ``g++`` with the flags of
+``native/confirm/Makefile`` (:data:`GXX_FLAGS`).  Nothing is built when
+a module is imported.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: host code: the flags of the JAX package's native/confirm/Makefile
+GXX_FLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared")
 
 
 def find_nvcc() -> str:
@@ -47,19 +52,37 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build_library(source: Path, verbose: bool = False) -> Path:
-    """Compile ``source`` (once per source hash and flags); returns the
-    shared library's path.  ``verbose`` rebuilds with ``-Xptxas -v`` and
-    prints the compiler's register and shared-memory report."""
-    src = source.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def find_compiler(name: str) -> str:
+    """The path of compiler ``name`` ("nvcc" or a host compiler)."""
+    if name == "nvcc":
+        return find_nvcc()
+    path = shutil.which(name)
+    if path is None:
+        raise RuntimeError("%s not found: the port's native code is built "
+                           "from ingress_plus_tpu_torch/csrc at first use"
+                           % name)
+    return path
+
+
+def build_library(source: Path, verbose: bool = False,
+                  compiler: str = "nvcc",
+                  flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """Compile ``source`` with ``compiler`` and ``flags`` (once per source
+    hash, compiler and flags); returns the shared library's path.
+    ``verbose`` rebuilds and prints the compiler's output (with nvcc,
+    under ``-Xptxas -v``: the register and shared-memory report).  A
+    failed build raises RuntimeError with the compiler's output."""
+    headers = sorted(source.parent.glob("*.cuh")) if source.suffix == ".cu" \
+        else []
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
+    tag = hashlib.sha256(
+        src + " ".join((compiler, *flags)).encode()).hexdigest()
     out = BUILD_DIR / ("lib%s_%s.so" % (source.stem, tag[:16]))
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
+    cmd = [find_compiler(compiler), *flags]
+    if verbose and compiler == "nvcc":
         cmd += ["-Xptxas", "-v"]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -67,8 +90,9 @@ def build_library(source: Path, verbose: bool = False) -> Path:
         proc = subprocess.run(cmd + ["-o", tmp, str(source)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed on %s:\n%s%s"
-                               % (source.name, proc.stdout, proc.stderr))
+            raise RuntimeError("%s failed on %s:\n%s%s"
+                               % (compiler, source.name, proc.stdout,
+                                  proc.stderr))
         if verbose:
             print(proc.stdout + proc.stderr, end="", flush=True)
         os.replace(tmp, out)   # atomic: concurrent builds both succeed
@@ -83,36 +107,46 @@ Prototype = Tuple[Sequence[type], type]
 
 
 class KernelLibrary:
-    """One kernel source's library: built and loaded at first use, with
-    its per-device setup function (which allows the kernels their
-    dynamic shared memory) run once on each card."""
+    """One source's library: built and loaded at first use, with its
+    per-device setup function, if it has one (which allows the kernels
+    their dynamic shared memory), run once on each card.  ``hold_gil``
+    loads it with ``ctypes.PyDLL``, whose calls keep the interpreter
+    lock, in place of ``ctypes.CDLL``, whose calls release it."""
 
     def __init__(self, source: Path, prototypes: Dict[str, Prototype],
-                 init: str):
+                 init: Optional[str], compiler: str = "nvcc",
+                 flags: Sequence[str] = NVCC_FLAGS, hold_gil: bool = False):
         self.source = source
         self.prototypes = dict(prototypes)
         self.init = init
+        self.compiler = compiler
+        self.flags = tuple(flags)
+        self.loader = ctypes.PyDLL if hold_gil else ctypes.CDLL
         self._lib = None
         self._ready = set()     # device indices the setup function ran on
         self._lock = threading.Lock()
 
     def build(self, verbose: bool = False) -> Path:
-        return build_library(self.source, verbose)
+        return build_library(self.source, verbose, self.compiler, self.flags)
 
     def load(self, dev: Optional[torch.device] = None):
         """The loaded library; with ``dev``, also run the setup function
         on that card (once)."""
+        lib = self._lib
+        if lib is not None and dev is None:
+            return lib
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
+                lib = self.loader(str(self.build()))
                 for name, (argtypes, restype) in self.prototypes.items():
                     fn = getattr(lib, name)
                     fn.argtypes = list(argtypes)
                     fn.restype = restype
-                getattr(lib, self.init).argtypes = []
-                getattr(lib, self.init).restype = ctypes.c_int
+                if self.init is not None:
+                    getattr(lib, self.init).argtypes = []
+                    getattr(lib, self.init).restype = ctypes.c_int
                 self._lib = lib
-            if dev is not None:
+            if dev is not None and self.init is not None:
                 idx = torch.device(dev).index
                 idx = torch.cuda.current_device() if idx is None else idx
                 if idx not in self._ready:

@@ -312,3 +312,45 @@ def test_post_plane_and_scoring_head_run_with_jax_absent():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"rows": 32, "head": True, "exported": True,
                    "modules": []}
+
+
+_TOOLING_CHILD = r"""
+import json, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None   # and of the JAX package
+from ingress_plus_tpu_torch.compiler.packgen import scale_rules
+from ingress_plus_tpu_torch.compiler.sigpack import load_bundled_rules
+from ingress_plus_tpu_torch.models.libdetect import detect_sqli, native_library
+from ingress_plus_tpu_torch.utils.evalf1 import evaluate
+from ingress_plus_tpu_torch.utils.microbench import best_time
+from ingress_plus_tpu_torch.utils.platform import ensure_live_backend
+rep = evaluate(n=32, batch=32, seed=5,
+               device=ensure_live_backend("cpu"))
+print(json.dumps({
+    "native": native_library() is not None,
+    "sqli": detect_sqli(b"1' UNION SELECT a FROM b--"),
+    "scaled": len(scale_rules(load_bundled_rules(), 0.5)),
+    "f1": [rep.n, rep.platform],
+    "timed": best_time(lambda k, rep: None, 1, device="cpu") >= 0,
+    "modules": sorted(m for m in sys.modules
+                      if (m == "ingress_plus_tpu"
+                          or m.startswith("ingress_plus_tpu.")
+                          or m.split(".")[0] == "jax")
+                      and sys.modules[m] is not None)}))
+"""
+
+
+def test_native_twin_and_tooling_run_with_jax_absent():
+    """The native confirm twin, packgen, evalf1, the microbench timing
+    and the card probe import and run with jax and the JAX package
+    unimportable."""
+    env = _env()
+    env.pop("IPT_NO_NATIVE_CONFIRM", None)
+    proc = subprocess.run([sys.executable, "-c", _TOOLING_CHILD],
+                          cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"native": True, "sqli": True, "scaled": 1007,
+                   "f1": [32, "cpu"], "timed": True, "modules": []}
