@@ -170,6 +170,43 @@ Phases (any failure ends the run with a non-zero exit code):
     {64, 2048} and B=8 x L=16384 (carried state, sticky match), timed;
     phase 3's first 512 requests through a card pipeline on it, verdicts
     equal to the CPU pipeline's, its launches re-run on their buckets.
+13. The mesh (``parallel/``) on the one card, after phase 12.  (a) A 1x1
+    mesh on the card with ``pallas2`` (the pair kernel on the shard's
+    class-id tables) and with ``take`` (the step kernel): on every
+    bucket of phase 3's requests, rule hits, class hits and scores
+    equal the plain CPU mesh step's, and a subset of the single-device
+    engine's (the mesh gates stream-variants row by row, the single
+    engine request by request, as in the JAX package); a card pipeline
+    on each over phase 3's requests gives phase 3's CPU verdicts, one
+    launch of the impl's kernel per bucket and none of the other.  (b)
+    A 2x4 mesh whose eight entries all name the card: every step equals
+    the 1x1's, eight launches a bucket, and every shard's
+    ``PairScanner`` is bit-identical to ``scan_pairs`` on its tables
+    (match and state) at each bucket shape as the step lays it out.
+    (c) ``ring_scan`` over four entries of the card on phase 6's seven
+    bodies equals one contiguous ``StepScanner`` scan.  (d) ``python -m
+    ingress_plus_tpu_torch.serve --mesh 1x1`` on the card answers phase
+    3's traffic over the wire with the CPU reference's verdicts
+    (``/healthz``: cuda, ``pallas2``); its ``/debug/kernels`` launches
+    (equal to its mesh's per-shard count) are re-run by shape on the
+    shard's tables, bit-identical and timed against the bound: the
+    kernels line's "mesh" entry.
+14. The fleet.  Two card backends (the server's defaults, one process
+    each) behind ``--front``, and a second front over the first backend
+    alone.  A wave of phase 3's traffic through the two-backend front
+    gives the direct server's verdicts, one per request, with traffic
+    on both; then waves in turns through one backend and through two
+    (one, two, two, one): wire req/s and client p50/p99 of each.  One
+    backend is SIGKILLed 30% into a wave: every request gets exactly
+    one verdict (the reference's, or the front's fail-open one, which
+    never blocks), the node is ejected; restarted on its socket and
+    port, it is re-admitted (``state=up``, ``readmissions >= 1``) and a
+    wave passes with no fail-open.  ``python -m
+    ingress_plus_tpu_torch.control.fleetobs --once`` sees both nodes up;
+    an aggregator child's ``/fleet/metrics`` ``ipt_requests_total``
+    equals the sum of the nodes' own; ``python -m
+    ingress_plus_tpu_torch.control.retuned --once`` against it prints
+    one typed cycle record.  Both backends' health counters read 0.
 7. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
@@ -194,6 +231,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -396,7 +434,8 @@ def forced(kernel, scanner):
 
     def run(tokens, lengths, state=None, match=None, segment=None):
         return kernel(tokens, lengths, scanner.class_tiles, t.init_mask,
-                      t.final_mask, byte_class=scanner.byte_class,
+                      t.final_mask,
+                      byte_class=getattr(scanner, "byte_class", None),
                       state=state, match=match, segment=segment)
     return run
 
@@ -1333,17 +1372,27 @@ class ServeChild:
     temporary socket and a free HTTP port, ready once ``/readyz`` answers
     200; stopped (terminate, then kill) on exit."""
 
-    def __init__(self, *args: str, env: dict = None):
+    def __init__(self, *args: str, env: dict = None, sock: str = None,
+                 port: int = None):
         self.args = args
         self.env = env
+        self.sock = sock
+        self.port = port
 
     def __enter__(self):
+        self.start()
+        return self.ready()
+
+    def start(self) -> "ServeChild":
+        """Start the child (``ready`` waits for it): several children
+        start side by side.  ``sock`` and ``port``, when given, are
+        reused (a restart); else a temporary socket and a free port."""
         self.tmp = tempfile.mkdtemp(prefix="ipt")
-        self.sock = os.path.join(self.tmp, "serve.sock")
+        self.sock = self.sock or os.path.join(self.tmp, "serve.sock")
         if len(self.sock) > 100:
             raise SystemExit("serve: socket path too long for AF_UNIX: %s"
                              % self.sock)
-        self.port = free_port()
+        self.port = self.port or free_port()
         self.log_path = os.path.join(self.tmp, "serve.log")
         with open(self.log_path, "w") as logf:
             self.child = subprocess.Popen(
@@ -1352,8 +1401,14 @@ class ServeChild:
                  *self.args],
                 stdout=logf, stderr=subprocess.STDOUT, env=self.env,
                 cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.t_start = time.perf_counter()
+        return self
+
+    def ready(self) -> "ServeChild":
+        """Wait until ``/readyz`` answers 200; stops the child on
+        failure."""
         try:
-            t0 = time.perf_counter()
+            t0 = self.t_start
             while True:
                 if self.child.poll() is not None:
                     raise SystemExit("serve: the server exited with %d:\n%s"
@@ -1463,7 +1518,8 @@ def kernel_shapes(srv, scope: str = "serve") -> dict:
     status, body = srv.get("/debug/kernels?scope=" + scope)
     if status != 200:
         raise SystemExit("serve: /debug/kernels answered %d" % status)
-    return json.loads(body)
+    return {k: v for k, v in json.loads(body).items()
+            if k in ("pair_scan", "step_scan")}
 
 
 def shape_delta(before: dict, after: dict) -> dict:
@@ -1508,7 +1564,8 @@ def traffic_pool(requests, cases) -> np.ndarray:
 
 
 def retime_shapes(label: str, scanner, kernel, plain_fn, tables, shapes,
-                  pool: np.ndarray, dev: torch.device, kind: str) -> dict:
+                  pool: np.ndarray, dev: torch.device, kind: str,
+                  class_ids: bool = False) -> dict:
     """A kernel at each (B, L, carried) shape another process launched
     it at (``shape_delta``): rows of ``pool`` cut to that shape's latest
     lengths (and a seeded carried state and sticky match where the
@@ -1516,8 +1573,11 @@ def retime_shapes(label: str, scanner, kernel, plain_fn, tables, shapes,
     version, device time at the plan's segment length and unsplit, the
     plain version's time (one host-driven call).  Each shape's times
     count once per launch of it; the bound counts the work that process's
-    launches asked for.  Same result layout as ``retime_launches``."""
-    from ingress_plus_tpu_torch.ops.scan import from_numpy_u32
+    launches asked for.  Same result layout as ``retime_launches``.
+    ``class_ids``: the scanner is a ``PairScanner``, whose launch takes
+    int32 class ids (``classes_for``, mapped beforehand and left out of
+    the timed launch), 4 bytes a token in the bound."""
+    from ingress_plus_tpu_torch.ops.scan import classes_for, from_numpy_u32
 
     W, K1 = tables.n_words, tables.class_table.shape[0]
     run = forced(kernel, scanner)
@@ -1547,10 +1607,14 @@ def retime_shapes(label: str, scanner, kernel, plain_fn, tables, shapes,
         err = max(err, int((m.long() - m_ref.long()).abs().max()),
                   int((st.long() - s_ref.long()).abs().max()))
         k = s["launches"]
-        tm = timed_plan(lambda seg: run(*args, segment=seg), B, L, W,
+        kargs = args
+        if class_ids:
+            kargs = [classes_for(tables.byte_class, args[0], args[1]).to(
+                torch.int32).contiguous()] + args[1:]
+        tm = timed_plan(lambda seg: run(*kargs, segment=seg), B, L, W,
                         reps=10)
-        bd = bound_counts(B, L, W, K1, 1, s["carried"], kind, s["steps"],
-                          s["odd_rows"], k)
+        bd = bound_counts(B, L, W, K1, 4 if class_ids else 1, s["carried"],
+                          kind, s["steps"], s["odd_rows"], k)
         by_shape["%dx%d%s" % (B, L, "c" if s["carried"] else "")] = {
             "B": B, "L": L, "carried": s["carried"], "G": tm["G"],
             "segments": tm["segments"], "launches": k,
@@ -1579,6 +1643,29 @@ def retime_shapes(label: str, scanner, kernel, plain_fn, tables, shapes,
     return {"shapes": by_shape, "total": total}
 
 
+def wire_wants(requests, want) -> tuple:
+    """The verdicts a server gives ``requests`` on the wire: phase 3's
+    CPU verdicts ``want``, except for the bodies the Batcher reroutes to
+    the stream lane (no 16 KB truncation there), which get the CPU
+    stream engine's on the whole body.  Returns (wants, rerouted ids)."""
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.serve.batcher import Batcher
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    cpu = DetectionPipeline(load_pack(), device="cpu", fail_open=False)
+    plan_of = SimpleNamespace(OVERSIZE_THRESHOLD=Batcher.OVERSIZE_THRESHOLD)
+    want = list(want)
+    rerouted = []
+    for i, r in enumerate(requests):
+        plan = Batcher._reroute_plan(plan_of, r)
+        if plan is not None:
+            want[i] = verdict_key(oversized_reference(cpu, r, plan))
+            rerouted.append(r.request_id)
+    if not rerouted:
+        raise SystemExit("serve: no request is large enough to reroute")
+    return want, rerouted
+
+
 def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     """The serve plane on the card, driven over the wire (phase 8) with
     the server's defaults; then the same requests against a
@@ -1586,8 +1673,6 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     under one interpreter lock."""
     import dataclasses
 
-    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
-    from ingress_plus_tpu_torch.serve.batcher import Batcher
     from ingress_plus_tpu_torch.serve.client import drive
     from ingress_plus_tpu_torch.serve.normalize import Response
     from ingress_plus_tpu_torch.serve.protocol import (
@@ -1600,22 +1685,9 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     from ingress_plus_tpu_torch.utils.trace import (
         stage_breakdown_from_metrics,
     )
-    from ingress_plus_tpu_torch.weights import load_pack
 
     cases = stream_cases(STREAM_BODY, STREAM_CHUNK, SEED)
-    # the reference: phase 3's CPU verdicts, except for the bodies the
-    # Batcher reroutes to the stream lane (no 16 KB truncation there)
-    cpu = DetectionPipeline(load_pack(), device="cpu", fail_open=False)
-    plan_of = SimpleNamespace(OVERSIZE_THRESHOLD=Batcher.OVERSIZE_THRESHOLD)
-    want = list(want)
-    rerouted = []
-    for i, r in enumerate(requests):
-        plan = Batcher._reroute_plan(plan_of, r)
-        if plan is not None:
-            want[i] = verdict_key(oversized_reference(cpu, r, plan))
-            rerouted.append(r.request_id)
-    if not rerouted:
-        raise SystemExit("serve: no request is large enough to reroute")
+    want, rerouted = wire_wants(requests, want)
     with ServeChild() as srv:
         path = json.loads(srv.get("/healthz")[1])["robustness"][
             "device_path"]
@@ -2686,16 +2758,19 @@ def phase_fault_matrix(dev: torch.device) -> dict:
                             len(SCENARIOS)))
     return {"scenarios": {n: {"ok": r["ok"], "seconds": r["seconds"]}
                           for n, r in rep["scenarios"].items()},
-            "not_ported": rep["not_ported"], "wall_s": wall}
+            "wall_s": wall}
 
 
 # ---------------------------------- phase 12: native confirm and tooling
 
-#: phase 12 (b): the confirm bench children's corpus and best-of
-CONFIRM_REQS = 1024
-CONFIRM_ITERS = 3
+#: phase 12 (b): the confirm bench children's corpus and best-of (cut
+#: from 1024 and 3 to keep the whole run inside its time budget with
+#: phases 13 and 14)
+CONFIRM_REQS = 512
+CONFIRM_ITERS = 2
 #: phase 12 (d): the F1 gate's corpus size, card and CPU children alike
-F1_N = 2048
+#: (cut from 2048 for the same reason)
+F1_N = 1024
 #: phase 12 (e): the scaled pack's factor, the kernels' shapes on it, and
 #: the requests its pipelines take (phase 3's first)
 SCALE_FACTOR = 2.0
@@ -3046,6 +3121,442 @@ def phase_tooling_ab(dev: torch.device, requests, want) -> dict:
     return res
 
 
+
+# ---------------------------------------------- phase 13: the mesh
+
+#: phase 13 (b): the mesh whose eight entries all name the one card
+MESH_SHAPE = (2, 4)
+#: phase 13 (c): the ring's shards (entries of the one card)
+RING_SHARDS = 4
+
+
+def mesh_buckets(pl, requests) -> list:
+    """Every (tokens, lengths, row_req, row_sv) bucket of a pipeline's
+    run over ``requests`` in batches of BATCH, with its batch's Q pad."""
+    out = []
+    for i in range(0, len(requests), BATCH):
+        batch = requests[i:i + BATCH]
+        q = pl._pad_q(len(batch))
+        out += [(b, q) for b in pl._build_scan_buckets(batch)[0]]
+    return out
+
+
+def same_outputs(what: str, got, want) -> None:
+    """(rule hits, class hits, scores) exactly equal, or fail."""
+    for name, g, w in zip(("rule hits", "class hits", "scores"), got, want):
+        if g.shape != w.shape or not (g == w).all():
+            raise SystemExit("mesh %s: %s differ from the reference"
+                             % (what, name))
+
+
+def mesh_rows(tok: np.ndarray, ln: np.ndarray, n_data: int) -> tuple:
+    """A bucket as the mesh step lays it out (``MeshEngine._dispatch``):
+    rows padded to n_data * B_s (B_s a power of two, at least 8), L to
+    even; the (B_s, L) slice of each data row."""
+    B, L = tok.shape
+    B_s = max(8, 1 << int(np.ceil(np.log2(max(1, -(-B // n_data))))))
+    tok2 = np.zeros((n_data * B_s, L + L % 2), np.uint8)
+    len2 = np.zeros((n_data * B_s,), np.int32)
+    tok2[:B, :L] = tok
+    len2[:B] = ln
+    return [(tok2[d * B_s:(d + 1) * B_s], len2[d * B_s:(d + 1) * B_s])
+            for d in range(n_data)]
+
+
+def mesh_launches(srv) -> int:
+    status, body = srv.get("/debug/kernels")
+    if status != 200:
+        raise SystemExit("mesh: /debug/kernels answered %d" % status)
+    return sum(sum(r) for r in json.loads(body)["mesh"]["shard_launches"])
+
+
+def phase_mesh(cr, dev: torch.device, requests, want, cases,
+               pool: np.ndarray) -> dict:
+    """Phase 13: ``parallel/`` on the one card (module docstring)."""
+    from ingress_plus_tpu_torch.models.engine import DetectionEngine
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, PairScanner
+    from ingress_plus_tpu_torch.ops.scan import ScanTables, scan_pairs
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+    from ingress_plus_tpu_torch.parallel import make_mesh
+    from ingress_plus_tpu_torch.parallel.serve_mesh import MeshEngine
+    from ingress_plus_tpu_torch.parallel.stream import ring_scan
+
+    t0 = time.perf_counter()
+    # (a) the 1x1 mesh on the card against the plain CPU mesh step
+    cpu = DetectionPipeline(cr, device="cpu", fail_open=False)
+    buckets = mesh_buckets(cpu, requests)
+    ref_mesh = MeshEngine(cr, make_mesh(1, 1, devices=["cpu"]))
+    refs = [ref_mesh.detect(*b, q) for b, q in buckets]
+    # the mesh step gates stream-variants row by row, the single engine
+    # request by request (as in the JAX package): its rule hits must be
+    # a subset of the single engine's, and the verdicts equal
+    single = DetectionEngine(cr, device=dev)
+    wider = 0
+    for (b, q), ref in zip(buckets, refs):
+        rh1 = single.detect(*b, q)[0]
+        if (ref[0] & ~rh1).any():
+            raise SystemExit("mesh: a rule hit the single-device engine "
+                             "does not have")
+        wider += int((rh1 & ~ref[0]).sum())
+    res = {"buckets": len(buckets), "single_engine_extra_rule_hits": wider,
+           "impls": {}}
+    one = {}
+    for impl, kernel, other in (("pallas2", PAIR_SCAN, STEP_SCAN),
+                                ("take", STEP_SCAN, PAIR_SCAN)):
+        eng = MeshEngine(cr, make_mesh(1, 1, devices=[dev]), scan_impl=impl)
+        for (b, q), ref in zip(buckets, refs):
+            same_outputs("1x1 %s step" % impl, eng.detect(*b, q), ref)
+        pl = DetectionPipeline(cr, device=dev, fail_open=False, engine=eng)
+        run_pipeline(pl, requests[:BATCH])          # warm-up (not counted)
+        torch.cuda.synchronize()
+        PAIR_SCAN.launches = STEP_SCAN.launches = 0
+        t1 = time.perf_counter()
+        got = run_pipeline(pl, requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {"pair_scan": PAIR_SCAN.launches,
+                    "step_scan": STEP_SCAN.launches}
+        check_verdicts("1x1 mesh %s pipeline" % impl, got, want)
+        if kernel.launches != len(buckets) or other.launches:
+            raise SystemExit("mesh: the 1x1 %s pipeline launched %s for %d "
+                             "buckets" % (impl, launches, len(buckets)))
+        res["impls"][impl] = {"launches": launches, "wall_s": wall,
+                              "req_per_s_confirm_included":
+                                  len(requests) / wall}
+        one[impl] = eng
+        log("mesh (a): 1x1 %s on %s: %d buckets equal the plain cpu step, "
+            "%d verdicts equal the cpu pipeline, %s, %.1f req/s"
+            % (impl, dev, len(buckets), len(requests), launches,
+               len(requests) / wall))
+
+    # (b) the 2x4 mesh, every entry the one card
+    n_data, n_model = MESH_SHAPE
+    eng24 = MeshEngine(cr, make_mesh(n_data, n_model,
+                                     devices=[dev] * (n_data * n_model)))
+    if eng24.scan_impl != "pallas2":
+        raise SystemExit("mesh: auto on cuda is %s" % eng24.scan_impl)
+    ones = [one["pallas2"].detect(*b, q) for b, q in buckets]
+    PAIR_SCAN.launches = 0
+    for (b, q), ref in zip(buckets, ones):
+        same_outputs("2x4 step", eng24.detect(*b, q), ref)
+    if PAIR_SCAN.launches != n_data * n_model * len(buckets):
+        raise SystemExit("mesh: the 2x4 step launched %d times for %d "
+                         "buckets" % (PAIR_SCAN.launches, len(buckets)))
+    sh = eng24.sharded
+    seen, checked = set(), 0
+    for b, _q in buckets:
+        tok, ln = b[0], b[1]
+        if tok.shape in seen:
+            continue
+        seen.add(tok.shape)
+        for rows_tok, rows_len in mesh_rows(tok, ln, n_data):
+            t_d = torch.from_numpy(rows_tok).to(dev)
+            n_d = torch.from_numpy(rows_len)
+            for s_ in range(n_model):
+                tabs = sh.shard_tables(dev, s_).scan
+                m, st = sh.scanner(dev, s_)(t_d, n_d)
+                m_ref, s_ref = scan_pairs(tabs, t_d, n_d.to(dev))
+                if not (torch.equal(m, m_ref) and torch.equal(st, s_ref)):
+                    raise SystemExit("mesh: shard %d's PairScanner differs "
+                                     "from scan_pairs at %dx%d"
+                                     % (s_, *rows_tok.shape))
+                checked += 1
+    res["mesh_2x4"] = {"launches": n_data * n_model * len(buckets),
+                       "w_shard": sh.st.w_shard, "k_max": sh.st.k_max,
+                       "shard_checks": checked,
+                       "shapes": sorted("%dx%d" % x for x in seen)}
+    log("mesh (b): 2x4 on one card (w_shard %d, k_max %d): %d steps equal "
+        "the 1x1's; %d (shard, data row, shape) launches bit-identical to "
+        "scan_pairs" % (sh.st.w_shard, sh.st.k_max, len(buckets), checked))
+
+    # (c) the ring over RING_SHARDS entries of the card, phase 6's bodies
+    bodies = [c.body for c in cases]
+    L = max(len(x) for x in bodies)
+    L = -(-L // RING_SHARDS) * RING_SHARDS
+    toks = np.zeros((len(bodies), L), np.uint8)
+    lens = np.asarray([len(x) for x in bodies], np.int32)
+    for i, x in enumerate(bodies):
+        toks[i, :len(x)] = np.frombuffer(x, np.uint8)
+    tables = ScanTables.from_bitap(cr.tables, dev)
+    ring_mesh = make_mesh(1, RING_SHARDS, devices=[dev] * RING_SHARDS)
+    STEP_SCAN.launches = 0
+    ring = ring_scan(tables, ring_mesh, toks, lens)
+    ring_launches = STEP_SCAN.launches
+    whole, _ = StepScanner(tables)(torch.from_numpy(toks).to(dev),
+                                   torch.from_numpy(lens))
+    torch.cuda.synchronize()
+    if not torch.equal(ring, whole) or not bool(ring.any()):
+        raise SystemExit("mesh: ring_scan differs from the contiguous scan")
+    tok_dev = torch.from_numpy(toks).to(dev)
+    len_host = torch.from_numpy(lens)
+    res["ring"] = {
+        "bodies": len(bodies), "L": L, "shards": RING_SHARDS,
+        "launches": ring_launches,
+        "ring_ms": time_ms(lambda: ring_scan(tables, ring_mesh, toks, lens),
+                           reps=3),
+        "contiguous_ms": time_ms(lambda: StepScanner(tables)(tok_dev,
+                                                             len_host),
+                                 reps=3)}
+    log("mesh (c): ring_scan over %d shards of the card on %d bodies "
+        "(L=%d) equals one contiguous scan; %d launch(es), %.2f ms vs "
+        "%.2f ms contiguous (host clock around the call, CUDA events)"
+        % (RING_SHARDS, len(bodies), L, ring_launches, res["ring"]["ring_ms"],
+           res["ring"]["contiguous_ms"]))
+
+    # (d) the server with --mesh 1x1 on the card, over the wire
+    wants, rerouted = wire_wants(requests, want)
+    with ServeChild("--mesh", "1x1") as srv:
+        path = json.loads(srv.get("/healthz")[1])["robustness"][
+            "device_path"]
+        if path["backend"] != "cuda" or path["scan_impl"] != "pallas2":
+            raise SystemExit("mesh: /healthz device_path %s, want cuda "
+                             "and pallas2" % path)
+        info = json.loads(srv.get("/rules/stats")[1])["device"]["mesh"]
+        shapes0, mesh0 = kernel_shapes(srv), mesh_launches(srv)
+        wave = request_wave(srv.sock, requests, [wants])
+        shapes1, mesh1 = kernel_shapes(srv), mesh_launches(srv)
+        metrics = srv.metrics()
+    check_serve_metrics("--mesh 1x1", metrics)
+    shapes = shape_delta(shapes0, shapes1)
+    served = sum(x["launches"] for x in shapes["pair_scan"])
+    if served <= 0 or served != mesh1 - mesh0:
+        raise SystemExit("mesh: the server's pallas2 launches %d, its "
+                         "shards' %d" % (served, mesh1 - mesh0))
+    tabs = one["pallas2"].sharded.shard_tables(dev, 0).scan
+    retimed = retime_shapes(
+        "pair mesh", PairScanner(tabs), PAIR_SCAN,
+        lambda t, n, *c: scan_pairs(tabs, t, n, *c), tabs,
+        shapes["pair_scan"], pool, dev, "pair", class_ids=True)
+    res["serve"] = {"mesh": {k: info[k] for k in ("data", "model",
+                                                  "w_shard", "k_max")},
+                    "rerouted_to_stream_lane": rerouted,
+                    "pallas2_launches": served, **wave}
+    res["retimed"] = retimed
+    res["seconds"] = time.perf_counter() - t0
+    log("mesh (d): --mesh 1x1 server: %d verdicts equal the cpu reference, "
+        "%.1f req/s on the wire, p50 %.2f ms p99 %.2f ms; %d pallas2 "
+        "launches; phase 13 %.1f s"
+        % (len(requests), wave["wire_req_per_s"], wave["p50_ms"],
+           wave["p99_ms"], served, res["seconds"]))
+    return res
+
+
+# --------------------------------------------- phase 14: the fleet
+
+#: phase 14: the front's probe cadence (s)
+FRONT_PROBE_S = "0.2"
+#: phase 14: the share of a wave's time after which a backend is killed
+KILL_AT = 0.3
+
+
+def front_nodes(front) -> dict:
+    status, body = front.get("/front/nodes")
+    if status != 200:
+        raise SystemExit("fleet: /front/nodes answered %d" % status)
+    return {r["name"]: r for r in json.loads(body)}
+
+
+def wait_node(front, name: str, pred, what: str, limit_s: float = 60.0):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        row = front_nodes(front)[name]
+        if pred(row):
+            return row, time.perf_counter() - t0
+        time.sleep(0.1)
+    raise SystemExit("fleet: node %s never %s: %s" % (name, what, row))
+
+
+def kill_wave(front, victim, requests, wants, after_s: float) -> dict:
+    """``requests`` through ``front`` with ``victim`` SIGKILLed
+    ``after_s`` into the wave: one verdict per request, each the
+    reference's or the front's fail-open one (never a block)."""
+    from ingress_plus_tpu_torch.serve.client import drive
+    from ingress_plus_tpu_torch.serve.protocol import encode_request
+
+    units = [(i + 1, [encode_request(r, i + 1, mode=2)])
+             for i, r in enumerate(requests)]
+    box = {}
+
+    def run():
+        try:
+            box["out"] = drive(front.sock, units, SERVE_CONNECTIONS,
+                               SERVE_WINDOW, timeout=300)
+        except BaseException as e:          # reported on the main thread
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    time.sleep(after_s)
+    victim.child.kill()
+    victim.child.wait()
+    killed_at = time.perf_counter() - t0
+    th.join(timeout=600)
+    if "error" in box or th.is_alive():
+        raise SystemExit("fleet: the kill wave failed: %s"
+                         % box.get("error", "timeout"))
+    out = box["out"]
+    if sorted(out) != list(range(1, len(requests) + 1)):
+        raise SystemExit("fleet: %d of %d verdicts came back"
+                         % (len(out), len(requests)))
+    fail_open = 0
+    for i, r in enumerate(requests):
+        resp = out[i + 1][0]
+        if resp["fail_open"]:
+            fail_open += 1
+            if resp["blocked"]:
+                raise SystemExit("fleet: a fail-open verdict blocked")
+        elif wire_key(r.request_id, resp) != wants[i]:
+            raise SystemExit("fleet: verdict %s differs from the cpu "
+                             "reference" % r.request_id)
+    return {"requests": len(requests), "verdicts": len(out),
+            "fail_open": fail_open, "killed_at_s": killed_at,
+            "wall_s": time.perf_counter() - t0}
+
+
+def repo_json(args, timeout: float) -> dict:
+    """A ``python -m`` child of this checkout; its stdout as JSON."""
+    proc = subprocess.run([sys.executable, "-m", *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise SystemExit("fleet: %s exited with %d:\n%s"
+                         % (args[0], proc.returncode, proc.stderr[-3000:]))
+    return json.loads(proc.stdout)
+
+
+def phase_fleet(requests, want, smi: str) -> dict:
+    """Phase 14: two card backends behind the front (module docstring)."""
+    t0 = time.perf_counter()
+    wants, _ = wire_wants(requests, want)
+    res = {"card": smi}
+    n0, n1 = ServeChild(), ServeChild()
+    children = [n0, n1]
+    aggregator = []
+    try:
+        for n in (n0, n1):
+            n.start()
+        for n in (n0, n1):
+            n.ready()
+
+        def backend(name, n):
+            return "%s=%s@127.0.0.1:%d" % (name, n.sock, n.port)
+
+        two = ServeChild("--front", "--backend", backend("n0", n0),
+                         "--backend", backend("n1", n1),
+                         "--probe-interval-s", FRONT_PROBE_S)
+        one = ServeChild("--front", "--backend", backend("n0", n0),
+                         "--probe-interval-s", FRONT_PROBE_S)
+        children += [two, one]
+        for f in (two, one):
+            f.start()
+        for f in (two, one):
+            f.ready()
+        first = request_wave(two.sock, requests, [wants])
+        rows = front_nodes(two)
+        if min(rows[n]["forwarded"] for n in ("n0", "n1")) <= 0:
+            raise SystemExit("fleet: the front used one backend: %s" % rows)
+        res["through_front"] = {**first, "forwarded": {
+            n: rows[n]["forwarded"] for n in rows}}
+        log("fleet: %d verdicts through the front equal the direct "
+            "server's; forwarded %s" % (len(requests),
+                                        res["through_front"]["forwarded"]))
+        # one backend against two on the one card, in turns
+        turns = []
+        for name, f in (("one", one), ("two", two), ("two", two),
+                        ("one", one)):
+            w = request_wave(f.sock, requests, [wants])
+            turns.append({"backends": name, **{k: w[k] for k in (
+                "wire_req_per_s", "p50_ms", "p99_ms", "wall_s")}})
+            log("fleet: %s backend(s) behind the front: %.1f req/s, p50 "
+                "%.2f ms p99 %.2f ms" % (name, w["wire_req_per_s"],
+                                         w["p50_ms"], w["p99_ms"]))
+        res["one_vs_two"] = turns
+        # SIGKILL n1 mid-wave, then restart it on its socket and port
+        res["kill"] = kill_wave(two, n1, requests, wants,
+                                KILL_AT * first["wall_s"])
+        row, _ = wait_node(two, "n1", lambda r: r["state"] != "up",
+                           "ejected")
+        res["kill"]["eject_reason"] = row["eject_reason"]
+        n1b = ServeChild(sock=n1.sock, port=n1.port)
+        children.append(n1b)
+        n1b.start().ready()
+        row, secs = wait_node(
+            two, "n1", lambda r: r["state"] == "up" and r["readmissions"] >= 1,
+            "re-admitted")
+        res["restart"] = {"state": row["state"],
+                          "readmissions": row["readmissions"],
+                          "startup_s": n1b.startup_s,
+                          "readmitted_after_ready_s": secs}
+        after = request_wave(two.sock, requests, [wants])
+        res["after_restart"] = {k: after[k] for k in (
+            "wire_req_per_s", "p50_ms", "p99_ms")}
+        log("fleet: n1 SIGKILLed %.2f s into a wave: %d of %d verdicts, %d "
+            "failed open; ejected (%s), restarted, re-admitted %d time(s); "
+            "then %.1f req/s"
+            % (res["kill"]["killed_at_s"], res["kill"]["verdicts"],
+               len(requests), res["kill"]["fail_open"],
+               res["kill"]["eject_reason"], row["readmissions"],
+               after["wire_req_per_s"]))
+        # the fleet telemetry plane and the retune daemon over both
+        nodes = ["n0=127.0.0.1:%d" % n0.port, "n1=127.0.0.1:%d" % n1b.port]
+        node_args = [a for n in nodes for a in ("--node", n)]
+        health = repo_json(["ingress_plus_tpu_torch.control.fleetobs",
+                            *node_args, "--once"], 120)
+        if health["nodes_up"] != 2:
+            raise SystemExit("fleet: fleetobs --once: %s" % health)
+        agg_port = free_port()
+        aggregator.append(subprocess.Popen(
+            [sys.executable, "-m", "ingress_plus_tpu_torch.control.fleetobs",
+             *node_args, "--port", str(agg_port), "--interval-s", "0.5"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+        per_node = {n: metric_values(c.metrics(), "ipt_requests_total")[0][1]
+                    for n, c in (("n0", n0), ("n1", n1b))}
+        fleet_total, t1 = None, time.perf_counter()
+        while time.perf_counter() - t1 < 30:
+            try:
+                status, body = http_get(agg_port, "/fleet/metrics", 5)
+            except OSError:
+                status = 0
+            if status == 200:
+                vals = metric_values(body.decode(), "ipt_requests_total")
+                if vals:
+                    fleet_total = vals[0][1]
+                    if fleet_total == sum(per_node.values()):
+                        break
+            time.sleep(0.25)
+        if fleet_total != sum(per_node.values()):
+            raise SystemExit("fleet: /fleet/metrics ipt_requests_total %s, "
+                             "nodes %s" % (fleet_total, per_node))
+        lkg = tempfile.mkdtemp(prefix="ipt")
+        rec = repo_json(["ingress_plus_tpu_torch.control.retuned",
+                         "--fleet-url", "127.0.0.1:%d" % agg_port,
+                         *node_args, "--lkg-dir", lkg, "--once"], 300)
+        shutil.rmtree(lkg, ignore_errors=True)
+        if not (rec.get("result", "").startswith(("skip:", "rollout:"))
+                and rec.get("cycle") == 1):
+            raise SystemExit("fleet: retuned --once: %s" % rec)
+        res["telemetry"] = {"fleetobs_once_nodes_up": health["nodes_up"],
+                            "fleet_requests_total": fleet_total,
+                            "per_node": per_node,
+                            "retuned": {k: rec.get(k) for k in (
+                                "cycle", "result", "detail")}}
+        log("fleet: fleetobs: ipt_requests_total %s = sum of nodes %s; "
+            "retuned --once: %s" % (fleet_total, per_node, rec["result"]))
+        for c in (n0, n1b):
+            check_serve_metrics("fleet backend", c.metrics())
+    finally:
+        for proc in aggregator:
+            proc.terminate()
+            proc.wait(timeout=30)
+        for c in reversed(children):
+            if getattr(c, "child", None) is not None:   # started
+                c.__exit__(None, None, None)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
@@ -3141,6 +3652,14 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                    twin_build_s=built[2][1])
     log("native confirm and tooling " + json.dumps(
         {k: v for k, v in tooling.items() if k != "scan_modes"}))
+    from ingress_plus_tpu_torch.utils.stream_corpus import stream_cases
+
+    mesh = phase_mesh(cr, dev, requests, want,
+                      stream_cases(STREAM_BODY, STREAM_CHUNK, SEED), pool)
+    log("mesh " + json.dumps({k: v for k, v in mesh.items()
+                              if k != "retimed"}))
+    fleet = phase_fleet(requests, want, smi)
+    log("fleet " + json.dumps(fleet))
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -3151,7 +3670,8 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         "stream": stream, "serve": serve, "serve_kernels": serve_k,
         "rollout": rollout, "rollout_kernels": rollout_k,
         "fault_matrix": fault_matrix, "post": post, "post_kernels": post_k,
-        "native_tooling": tooling, "sass": sass,
+        "native_tooling": tooling, "mesh": mesh, "fleet": fleet,
+        "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -3250,8 +3770,26 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                                          "shadow scans"),
                            ("step_scan", "carried scans of the admissions"))
         if post_k[name]["total"]["launches"]]
-    print(json.dumps({"kernels": serve_entries + rollout_entries
-                      + post_entries + [entry(
+    mesh_t = mesh["retimed"]["total"]
+    mesh_entries = [entry(
+        "pair_scan", "mesh (phase 13 (d)): a --mesh 1x1 server's batches, "
+        "pallas2 on the shard's class-id tables", mesh_t,
+        mesh_t["max_abs_err"], configuration="class_id (pallas2)",
+        parity="bit-identical match and state at each of the --mesh 1x1 "
+               "server's %d (B, L, carried) shapes on the 1x1 shard's "
+               "tables (W=%d); every shard of the 2x4 mesh on one card "
+               "at %d (shard, data row, shape) launches; the 1x1 and 2x4 "
+               "steps equal the plain cpu step on every bucket"
+               % (len(mesh["retimed"]["shapes"]),
+                  mesh["serve"]["mesh"]["w_shard"],
+                  mesh["mesh_2x4"]["shard_checks"]),
+        shape="the server's %d pallas2 launches, each shape's device time "
+              "once per launch of it (class ids mapped beforehand); bound "
+              "from the work the server counted, 4 bytes a token"
+              % mesh_t["launches"],
+        segments=segment_rows("mesh path", mesh["retimed"]["shapes"].values()))]
+    print(json.dumps({"kernels": serve_entries + mesh_entries
+                      + rollout_entries + post_entries + [entry(
         "pair_scan", "library: pallas3 batch path (phase 3)", tot,
         max(s[c]["max_abs_err"] for s in kern["shapes"]
             for c in ("raw_byte", "class_id")),

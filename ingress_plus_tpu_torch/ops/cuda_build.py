@@ -201,6 +201,11 @@ SERVE_SCOPE = "serve"
 ROLLOUT_SCOPE = "rollout"
 
 
+def current_scope() -> str:
+    """The calling thread's :func:`launch_scope` name."""
+    return getattr(_scope, "name", SERVE_SCOPE)
+
+
 @contextmanager
 def launch_scope(name: str) -> Iterator[None]:
     """Tally this thread's kernel launches under ``name`` inside the
@@ -208,7 +213,7 @@ def launch_scope(name: str) -> Iterator[None]:
     ``ROLLOUT_SCOPE``), so the per-shape tally of the serving cycles stays the
     serving cycles' own.  Every launch still adds one to
     ``ScanKernel.launches``."""
-    prev = getattr(_scope, "name", SERVE_SCOPE)
+    prev = current_scope()
     _scope.name = name
     try:
         yield
@@ -254,7 +259,7 @@ class ScanKernel:
                host: Optional[torch.Tensor]) -> None:
         n = (None if host is None
              else host.to(torch.int64).clamp(0, L).numpy())
-        key = (getattr(_scope, "name", SERVE_SCOPE), B, L, carried)
+        key = (current_scope(), B, L, carried)
         with self._shapes_lock:
             t = self._shapes.setdefault(key, [0, 0, 0, 0, None])
             t[0] += 1

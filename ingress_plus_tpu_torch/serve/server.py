@@ -35,12 +35,24 @@ else the scorer LKG in ``--lkg-dir``) decides the attack flag;
 ``/scoring`` reads it and ``POST /configuration/scoring`` stages a new one
 through the same rollout.
 
-Not here (their modules are not ported): the admission front and
-``--mesh``.
+``--mesh 2x4`` (or ``data=2,model=4``) serves the scan over a (data ×
+model) device mesh (parallel/serve_mesh.py ``MeshEngine``): the same
+batcher, buckets and confirm, with each bucket scanned by every (data
+row, model shard) entry on its own device and CUDA stream — on ``cuda``
+the pair kernel on each shard's class-id tables (``pallas2``), on
+``cpu`` the plain ``pair`` scan.  ``--mesh`` takes one lane (``--lanes
+1``); ``/rules/stats`` ``.device.mesh`` and ``/debug/kernels`` ``mesh``
+carry each entry's launches.
+
+``--front`` runs the shared admission front instead of a detection node
+(serve/front.py): it fans the same wire protocol across the
+``--backend NAME=SOCKET[@HOST:PORT]`` replicas, builds no batcher and
+imports no kernel (``serve/__main__.py`` routes it before this module
+loads).
 
 Run:  python -m ingress_plus_tpu_torch.serve --socket /tmp/ipt.sock \
           [--http-port 9901] [--mode block] [--platform cuda|cpu] \
-          [--rules-dir R] [--lkg-dir D]
+          [--rules-dir R] [--lkg-dir D] [--mesh 2x4]
 
 ``--platform`` defaults to ``cuda``: without a card the process exits
 non-zero at startup, it never serves on the CPU unless asked to.  On
@@ -187,7 +199,9 @@ class ServeLoop:
         self.started = time.time()
         self.connections = 0
         self._servers = []
-        # live UDS connection writers (aborted on shutdown)
+        # live UDS connection writers: the in-process node-kill drill
+        # (control/fleetctl.py NodeHarness) aborts these so the front
+        # sees a real EOF, exactly like a killed process
         self._conn_writers = set()
 
     # ------------------------------------------------------- UDS plane
@@ -1047,10 +1061,15 @@ class ServeLoop:
             from urllib.parse import parse_qs, urlsplit
             q = parse_qs(urlsplit(path).query, keep_blank_values=True)
             scope = (q.get("scope") or [SERVE_SCOPE])[0]
-            return ("200 OK", "application/json", json.dumps({
-                k.name: {"launches": k.scope_launches(scope),
-                         "shapes": k.shape_snapshot(scope)}
-                for k in (PAIR_SCAN, STEP_SCAN)}).encode())
+            body = {k.name: {"launches": k.scope_launches(scope),
+                             "shapes": k.shape_snapshot(scope)}
+                    for k in (PAIR_SCAN, STEP_SCAN)}
+            mesh_info = getattr(self.batcher.pipeline.engine, "mesh_info",
+                                None)
+            if mesh_info is not None:
+                # --mesh: each (data row, model shard) entry's launches
+                body["mesh"] = mesh_info()
+            return ("200 OK", "application/json", json.dumps(body).encode())
         if path.startswith("/debug/slow"):
             # the K slowest requests since startup: full span breakdown,
             # truncated input sizes, rules hit (exemplar capture)
@@ -1493,6 +1512,7 @@ def build_default_batcher(mode: str = "block",
                           max_delay_s: float = 0.0005,
                           warmup: bool = True,
                           scan_impl: str = "auto",
+                          mesh_spec: Optional[str] = None,
                           queue_cap: int = 8192,
                           hard_deadline_s: float = 0.25,
                           hang_budget_s: float = 30.0,
@@ -1526,7 +1546,10 @@ def build_default_batcher(mode: str = "block",
     ``pair`` on ``cpu`` — a constant, not a startup timing, until a
     benchmark shows which kernel wins end to end.  Warmup dispatches run
     on each lane's own worker thread, with its card and stream
-    current."""
+    current.  ``mesh_spec`` serves the scan over a device mesh
+    (parallel/serve_mesh.py): one lane only, ``pallas``/``pallas3``
+    mapped to ``pallas2`` (the kernel with a sharded variant), ``auto``
+    = ``pallas2`` on ``cuda`` and ``pair`` on ``cpu``."""
     import os
 
     from ingress_plus_tpu_torch.control.rollout import (
@@ -1566,6 +1589,13 @@ def build_default_batcher(mode: str = "block",
                  cr.tables.n_words, cr.version), file=sys.stderr)
     else:
         cr = load_pack()
+    # n_lanes == 0 is the --lanes auto sentinel: it resolves to a
+    # multi-lane pool on a multi-card host, so it counts as multi-lane
+    if mesh_spec and n_lanes != 1:
+        raise ValueError(
+            "--mesh (ruleset sharding, one step over the mesh) and "
+            "--lanes (per-device lanes) are different parallelizations "
+            "of the same cards — pick one")
     if n_lanes == 0:   # --lanes auto: one lane per local device
         n_lanes = (max(1, torch.cuda.device_count())
                    if device.type == "cuda" else 1)
@@ -1581,12 +1611,35 @@ def build_default_batcher(mode: str = "block",
         confirm_workers = max(1, min(8, os.cpu_count() or 1))
         print("confirm plane: auto -> %d confirm workers"
               % confirm_workers, file=sys.stderr)
-    if scan_impl != "auto":
+    engine = None
+    t0 = time.time()
+    if mesh_spec:
+        from ingress_plus_tpu_torch.parallel.serve_mesh import (
+            MeshEngine,
+            parse_mesh_spec,
+        )
+        from ingress_plus_tpu_torch.parallel.shard import check_impl
+
+        if scan_impl in ("pallas", "pallas3"):
+            # neither the byte kernel nor the raw-byte configuration has
+            # a sharded variant; the class-id pair kernel is their mesh
+            # counterpart
+            print("mesh serving: --scan-impl %s -> pallas2 (sharded "
+                  "variant)" % scan_impl, file=sys.stderr)
+            scan_impl = "pallas2"
+        if scan_impl != "auto":
+            check_impl(scan_impl, device.type)
+        engine = MeshEngine(cr, parse_mesh_spec(mesh_spec,
+                                                platform=device.type),
+                            scan_impl=None if scan_impl == "auto"
+                            else scan_impl)
+        print("mesh serving: %s over %d devices"
+              % (mesh_spec, engine.mesh.size), file=sys.stderr)
+    elif scan_impl != "auto":
         # validated against the device before any build (pair = cpu)
         DetectionEngine.check_impl(scan_impl, device)
-    t0 = time.time()
     pipeline = DetectionPipeline(
-        cr, mode=mode, device=device,
+        cr, mode=mode, device=device, engine=engine,
         scan_impl=None if scan_impl == "auto" else scan_impl,
         confirm_workers=confirm_workers,
         confirm_cache_entries=confirm_cache_entries)
@@ -1729,7 +1782,11 @@ def _parse_lanes(value: str) -> int:
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(prog="ingress_plus_tpu_torch.serve")
+    ap = argparse.ArgumentParser(
+        prog="ingress_plus_tpu_torch.serve",
+        epilog="--front runs the admission front instead of a node; its "
+               "flags: python -m ingress_plus_tpu_torch.serve --front "
+               "--help (serve/front.py)")
     ap.add_argument("--socket", default="/tmp/ingress_plus_tpu.sock")
     ap.add_argument("--http-port", type=int, default=9901)
     ap.add_argument("--mode", default="block",
@@ -1748,6 +1805,12 @@ def main(argv=None) -> None:
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the warm dispatches (the kernels are still "
                          "built and loaded at startup on cuda)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve the scan over a device mesh, e.g. "
+                         "'data=2,model=4' or '2x4' (DP x TP sharding "
+                         "across the cards; parallel/serve_mesh.py); on "
+                         "cpu up to 8 entries of the CPU.  Needs "
+                         "--lanes 1")
     ap.add_argument("--lanes", default="1",
                     help="data-parallel per-device serve lanes behind "
                          "one admission queue (docs/MESH_SERVING.md): "
@@ -1917,7 +1980,7 @@ def main(argv=None) -> None:
             mode=args.mode, rules_dir=args.rules_dir,
             max_batch=args.max_batch,
             max_delay_s=args.max_delay_us / 1e6, warmup=not args.no_warmup,
-            scan_impl=args.scan_impl,
+            scan_impl=args.scan_impl, mesh_spec=args.mesh,
             queue_cap=args.queue_cap,
             hard_deadline_s=args.hard_deadline_ms / 1e3,
             hang_budget_s=args.hang_budget_ms / 1e3,

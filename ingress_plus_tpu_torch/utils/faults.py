@@ -72,15 +72,14 @@ card, or on the CPU when asked) under every ported scenario plus a
 synthetic overload burst and asserts the serve-plane invariant — every
 admitted request resolves to exactly one verdict, and no fault becomes
 an unhandled exception or a block.  On a card, a breaker-open batch
-fails open instead of moving to the host.  The fleet scenarios wait
-for their modules (``NOT_PORTED``).  See
-docs/ROBUSTNESS.md.
+fails open instead of moving to the host.  See docs/ROBUSTNESS.md.
 """
 
 from __future__ import annotations
 
 import os
 import random
+import tempfile
 import threading
 import time
 from dataclasses import dataclass
@@ -1197,6 +1196,329 @@ def _scenario_tenant_flood_canary(install_plan, device=None) -> dict:
     finally:
         b.close()
 
+
+def _scenario_fleet_scrape(install_plan, device=None) -> dict:
+    """A fleet node dying mid-scrape: the observer marks it
+    stale, excludes it from every rollup, and counter conservation
+    holds over the reachable subset — while the node itself keeps
+    serving verdicts (a scrape-plane failure must never become a
+    serve-plane failure)."""
+    from ingress_plus_tpu_torch.control.fleetobs import (
+        FleetObserver, serve_loop_transport)
+    from ingress_plus_tpu_torch.serve.server import ServeLoop
+
+    cr = _matrix_ruleset()
+    batchers = [_mk_batcher(cr, device=device) for _ in range(3)]
+    violations: List[str] = []
+    try:
+        # in-process scrapes only: no socket is ever opened
+        serves = [ServeLoop(b, socket_path=os.path.join(
+            tempfile.gettempdir(), "ipt-fleet-%d-%d.sock" % (os.getpid(), i)))
+                  for i, b in enumerate(batchers)]
+        obs = FleetObserver()
+        for i, s in enumerate(serves):
+            obs.add_node("n%d" % i, transport=serve_loop_transport(s))
+
+        def _wave(tag: str, per_node: int = 16) -> int:
+            futs = []
+            for i, b in enumerate(batchers):
+                futs += [b.submit(r) for r in _requests(
+                    per_node, attack_every=8, tag="%s-n%d-" % (tag, i))]
+            vs, viol = _collect(futs, timeout_s=30)
+            _check_verdicts(vs, viol, len(futs))
+            violations.extend(viol)
+            return len(futs)
+
+        sent = _wave("f0")
+        obs.scrape()
+        counters, per_node = obs.counters_snapshot()
+        if counters.get("ipt_requests_total") != float(sent):
+            violations.append(
+                "conservation broke on the full fleet: fleet=%s, "
+                "submitted=%d" % (counters.get("ipt_requests_total"),
+                                  sent))
+        # node 0 dies at the NEXT scrape (first arrival at the site)
+        install_plan(FaultPlan.from_spec("scrape_5xx:times=1"))
+        sent += _wave("f1")
+        health = obs.scrape()
+        if health["nodes_up"] != 2 or health["nodes_stale"] != 1:
+            violations.append("expected 2 up + 1 stale, got %d up + "
+                              "%d stale" % (health["nodes_up"],
+                                            health["nodes_stale"]))
+        if not any(n["stale"] for n in health["nodes"]
+                   if n["name"] == "n0"):
+            violations.append("faulted node n0 was not marked stale")
+        counters, per_node = obs.counters_snapshot()
+        reachable_sum = sum(v for k, v in per_node.get(
+            "ipt_requests_total", {}).items() if k != "n0")
+        if counters.get("ipt_requests_total") != reachable_sum:
+            violations.append(
+                "conservation broke over the reachable subset: "
+                "fleet=%s, sum(up nodes)=%s"
+                % (counters.get("ipt_requests_total"), reachable_sum))
+        if "n0" in per_node.get("ipt_requests_total", {}):
+            violations.append("stale node n0 leaked into the rollup")
+        text = obs.fleet_metrics()
+        if "ipt_fleet_nodes_stale 1" not in text:
+            violations.append("ipt_fleet_nodes_stale gauge did not "
+                              "report the stale node")
+        # plan exhausted (times=1): the node must recover on the next
+        # cycle and conservation widen back to the full fleet
+        sent += _wave("f2")
+        health = obs.scrape()
+        if health["nodes_up"] != 3 or health["nodes_stale"] != 0:
+            violations.append("node n0 never recovered (%d up, %d "
+                              "stale)" % (health["nodes_up"],
+                                          health["nodes_stale"]))
+        counters, _pn = obs.counters_snapshot()
+        if counters.get("ipt_requests_total") != float(sent):
+            violations.append(
+                "conservation broke after recovery: fleet=%s, "
+                "submitted=%d" % (counters.get("ipt_requests_total"),
+                                  sent))
+        return {"ok": not violations, "violations": violations,
+                "requests": sent,
+                "scrape_errors": obs.scrape_errors}
+    finally:
+        for b in batchers:
+            b.close()
+
+
+def _front_wave(front, n: int, tag: str, violations: List[str],
+                kill=None, timeout_s: float = 30.0) -> dict:
+    """Push ``n`` mixed requests through the front's UDS listener on
+    one pipelined client connection; returns the verdict ledger keyed
+    by req_id.  ``kill`` (optional thunk) fires once mid-send when the
+    ``node_kill`` site is armed.  Exactly-one-verdict is the audit:
+    a missing, duplicate, or silently-unblocked-attack verdict is a
+    violation."""
+    import socket as socket_mod
+
+    from ingress_plus_tpu_torch.serve.protocol import (
+        RESP_MAGIC, FrameReader, decode_response, encode_request)
+
+    reqs = _requests(n, attack_every=4, tag=tag)
+    s = socket_mod.socket(socket_mod.AF_UNIX)
+    s.connect(front.socket_path)
+    s.settimeout(timeout_s)
+    got: dict = {}
+    try:
+        for i, r in enumerate(reqs):
+            s.sendall(encode_request(r, req_id=i + 1))
+            if kill is not None and i == n // 2 and fire("node_kill"):
+                kill()
+        reader = FrameReader(RESP_MAGIC)
+        while len(got) < n:
+            data = s.recv(65536)
+            if not data:
+                violations.append("%s: front EOF at %d/%d verdicts"
+                                  % (tag, len(got), n))
+                return got
+            for fr in reader.feed(data):
+                v = decode_response(fr)
+                if v["req_id"] in got:
+                    violations.append("%s: DUPLICATE verdict for %d"
+                                      % (tag, v["req_id"]))
+                got[v["req_id"]] = v
+    except OSError as e:
+        violations.append("%s: client error at %d/%d: %s"
+                          % (tag, len(got), n, e))
+    finally:
+        s.close()
+    for i in range(n):
+        if i % 4 == 0:   # the attack slots of _requests()
+            v = got.get(i + 1)
+            if v and not v["blocked"] and not v["fail_open"]:
+                violations.append("%s: attack %d passed unblocked "
+                                  "WITHOUT the fail-open flag (silent "
+                                  "degradation)" % (tag, i + 1))
+    return got
+
+
+def _front_node_state(front, name: str) -> str:
+    for row in front.status()["nodes"]:
+        if row["name"] == name:
+            return row["state"]
+    return "?"
+
+
+def _scenario_fleet_node_kill(install_plan, device=None) -> dict:
+    """A backend node dies under live load behind the shared admission
+    front: requests already in flight on the dead node come
+    back as SYNTHESIZED fail-open verdicts, everything not yet written
+    reroutes to a sibling — exactly one verdict per request, no attack
+    passes silently unblocked — the dead node is ejected, and a revived
+    node is re-admitted through the half-open canary without help."""
+    from ingress_plus_tpu_torch.control.fleetctl import build_drill_fleet
+
+    violations: List[str] = []
+    with tempfile.TemporaryDirectory(prefix="ipt-fkill-") as tmp:
+        harnesses, front, fleet, _obs = build_drill_fleet(
+            3, tmp, socket_prefix=os.path.join(tmp, "s"), device=device)
+        try:
+            install_plan(FaultPlan.from_spec("node_kill:times=1"))
+            _front_wave(front, 32, "warm", violations)
+            # the site decides the kill moment: one node dies with the
+            # wave half-sent and its in-flight verdicts unresolved
+            kill_got = _front_wave(front, 64, "kill", violations,
+                                   kill=harnesses[1].kill)
+            if len(kill_got) != 64:
+                violations.append("kill wave lost verdicts: %d of 64"
+                                  % len(kill_got))
+            deadline = time.monotonic() + 5.0
+            while (time.monotonic() < deadline
+                   and _front_node_state(front, "n1") == "up"):
+                time.sleep(0.05)
+            if _front_node_state(front, "n1") == "up":
+                violations.append("front never ejected the dead node")
+            # survivors: full service, zero fail-open, attacks blocked
+            post = _front_wave(front, 32, "post", violations)
+            if any(v["fail_open"] for v in post.values()):
+                violations.append("fail-open verdicts AFTER the dead "
+                                  "node was ejected (degradation must "
+                                  "be capacity, not service)")
+            # revive → half-open probe → canary → re-admitted
+            harnesses[1].revive()
+            deadline = time.monotonic() + 15.0
+            while (time.monotonic() < deadline
+                   and _front_node_state(front, "n1") != "up"):
+                time.sleep(0.1)
+            if _front_node_state(front, "n1") != "up":
+                violations.append("revived node was never re-admitted "
+                                  "(state %s)"
+                                  % _front_node_state(front, "n1"))
+            st = front.status()
+            return {"ok": not violations, "violations": violations,
+                    "front": {k: st[k] for k in
+                              ("requests_total", "retries_total",
+                               "fail_open_front_total")},
+                    "synth_fail_open": sum(
+                        n["synth_fail_open"] for n in st["nodes"])}
+        finally:
+            front.stop()
+            for h in harnesses:
+                h.close()
+
+
+def _scenario_fleet_rollout_node_death(install_plan,
+                                       device=None) -> dict:
+    """A node dies MID-FLEET-ROLLOUT: the canary node has
+    already acked the candidate and the second node is walking its
+    staged ramp when it dies — the fleet controller must converge
+    EVERY node (the already-promoted canary included) back to the
+    fleet LKG, never leaving the fleet split across generations."""
+    from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.seclang import parse_seclang
+    from ingress_plus_tpu_torch.control.fleetctl import (
+        FLEET_CANARY, FLEET_PROMOTING, FLEET_ROLLED_BACK,
+        build_drill_fleet, load_fleet_lkg)
+    from ingress_plus_tpu_torch.control.rollout import _DRILL_CANDIDATE
+
+    violations: List[str] = []
+    with tempfile.TemporaryDirectory(prefix="ipt-frkill-") as tmp:
+        harnesses, front, fleet, _obs = build_drill_fleet(
+            3, tmp, socket_prefix=os.path.join(tmp, "s"), device=device)
+        try:
+            install_plan(FaultPlan.from_spec("node_kill:times=1"))
+            incumbent = fleet.nodes[0].serving_version
+            cr_good = compile_ruleset(parse_seclang(_DRILL_CANDIDATE))
+            rep = fleet.begin(ruleset=cr_good)
+            if not rep.get("ok"):
+                violations.append("central admission rejected the good "
+                                  "candidate: %r" % rep)
+                return {"ok": False, "violations": violations}
+            deadline = time.monotonic() + 120.0
+            while (fleet.state in (FLEET_CANARY, FLEET_PROMOTING)
+                   and time.monotonic() < deadline):
+                fleet.traffic_pump(
+                    fleet.nodes[min(fleet._idx, len(fleet.nodes) - 1)])
+                # canary acked + next node mid-ramp = the kill moment
+                if len(fleet.acks) == 1 and fire("node_kill"):
+                    harnesses[1].kill()
+                    fleet.nodes[1].abort("node_death")
+                fleet.poll()
+            if fleet.state != FLEET_ROLLED_BACK:
+                violations.append("fleet did not roll back (state %s, "
+                                  "reason %r)" % (fleet.state,
+                                                  fleet.rollback_reason))
+            lkg = load_fleet_lkg(tmp)
+            if not lkg or lkg["version"] != incumbent:
+                violations.append("fleet LKG is not the incumbent: %r"
+                                  % (lkg and lkg["version"]))
+            for node in fleet.nodes:
+                if node.serving_version != incumbent:
+                    violations.append(
+                        "node %s left split on %s (fleet LKG %s)"
+                        % (node.name, node.serving_version, incumbent))
+            return {"ok": not violations, "violations": violations,
+                    "rollback_reason": fleet.rollback_reason,
+                    "acks_at_death": 1}
+        finally:
+            front.stop()
+            for h in harnesses:
+                h.close()
+
+
+def _scenario_fleet_partition_daemon(install_plan,
+                                     device=None) -> dict:
+    """A node partitions away DURING a retune-daemon cycle:
+    the scrape marks it stale and excludes it, the daemon's cycle
+    degrades to a structured skip (never a crash), the serve plane on
+    every node — the partitioned one included — keeps answering with
+    exactly one verdict per request, and the next cycle after the
+    partition heals re-admits the node's telemetry."""
+    from ingress_plus_tpu_torch.control.fleetctl import build_drill_fleet
+    from ingress_plus_tpu_torch.control.retuned import (
+        CYCLE_ERROR, RetuneDaemon)
+
+    violations: List[str] = []
+    with tempfile.TemporaryDirectory(prefix="ipt-fpart-") as tmp:
+        harnesses, front, fleet, obs = build_drill_fleet(
+            3, tmp, socket_prefix=os.path.join(tmp, "s"), observer=True,
+            device=device)
+        try:
+            daemon = RetuneDaemon(obs, fleet, tmp, min_interval_s=0.0)
+            obs.scrape()     # healthy baseline cycle
+            install_plan(FaultPlan.from_spec("node_partition:times=1"))
+            # partition fires inside the daemon's scrape: n0 unreachable
+            health = obs.scrape()
+            if health["nodes_up"] != 2 or health["nodes_stale"] != 1:
+                violations.append("expected 2 up + 1 stale during the "
+                                  "partition, got %d up + %d stale"
+                                  % (health["nodes_up"],
+                                     health["nodes_stale"]))
+            rec = daemon.cycle()
+            if rec["result"] == CYCLE_ERROR:
+                violations.append("daemon cycle CRASHED during the "
+                                  "partition: %s" % rec["detail"])
+            if not rec["result"].startswith("skip:"):
+                violations.append("daemon acted on partitioned "
+                                  "telemetry instead of a structured "
+                                  "skip: %r" % rec["result"])
+            # the serve plane must not notice the telemetry partition —
+            # the partitioned node included
+            for i, h in enumerate(harnesses):
+                vs, viol = _collect(
+                    [h.batcher.submit(r) for r in _requests(
+                        12, attack_every=4, tag="part-n%d-" % i)],
+                    timeout_s=30)
+                _check_verdicts(vs, viol, 12)
+                violations.extend(viol)
+            # plan exhausted: the next scrape heals the partition
+            health = obs.scrape()
+            if health["nodes_up"] != 3:
+                violations.append("partitioned node never rejoined the "
+                                  "telemetry plane (%d up)"
+                                  % health["nodes_up"])
+            return {"ok": not violations, "violations": violations,
+                    "daemon_cycle": rec["result"],
+                    "journal": daemon.journal_tail(4)}
+        finally:
+            front.stop()
+            for h in harnesses:
+                h.close()
+
+
 SCENARIOS = {
     "overload_burst": _scenario_overload,
     "dispatch_hang": _scenario_dispatch_hang,
@@ -1213,25 +1535,18 @@ SCENARIOS = {
     "lane_dispatch_raise": _scenario_lane_dispatch_raise,
     "tenant_flood": _scenario_tenant_flood,
     "tenant_flood_during_canary": _scenario_tenant_flood_canary,
+    "fleet_scrape": _scenario_fleet_scrape,
+    "fleet_node_kill": _scenario_fleet_node_kill,
+    "fleet_rollout_node_death": _scenario_fleet_rollout_node_death,
+    "fleet_partition_daemon": _scenario_fleet_partition_daemon,
 }
-
-#: scenarios of the JAX package's matrix whose modules this package does
-#: not have yet, with what they wait for: reported, never run or passed
-NOT_PORTED = {
-    "fleet_scrape": "the fleet observer (control/fleetobs.py)",
-    "fleet_node_kill": "the front (serve/front.py) and fleet control",
-    "fleet_rollout_node_death": "fleet control (control/fleetctl.py)",
-    "fleet_partition_daemon": "the retune daemon (control/retuned.py)",
-}
-
 
 def run_fault_matrix(only: Optional[List[str]] = None,
                      device=None) -> dict:
-    """Run every ported fault scenario on a batcher on ``device`` (None
-    = the CUDA card, "cpu" for the plain scan); returns a report with
-    per-scenario ok/violations.  The caller gates on ``passed``, which
-    covers the ported scenarios only: ``not_ported`` lists the rest, and
-    one named in ``only`` is reported as a failure.
+    """Run every fault scenario on batchers on ``device`` (None = the
+    CUDA card, "cpu" for the plain scan); returns a report with
+    per-scenario ok/violations.  The caller gates on ``passed``; a name
+    in ``only`` that is no scenario is reported as a failure.
 
     The previously active plan is restored afterwards — the matrix is
     safe to run inside a process that also serves (tests do)."""
@@ -1254,10 +1569,9 @@ def run_fault_matrix(only: Optional[List[str]] = None,
     finally:
         install(saved)
     for name in only or ():
-        if name in NOT_PORTED:
-            report[name] = {"ok": False, "violations": [
-                "not ported: needs %s" % NOT_PORTED[name]]}
+        if name not in SCENARIOS:
+            report[name] = {"ok": False,
+                            "violations": ["no such scenario"]}
     return {"passed": bool(report) and all(r["ok"]
                                            for r in report.values()),
-            "scenarios": report,
-            "not_ported": sorted(set(NOT_PORTED) - set(report))}
+            "scenarios": report}

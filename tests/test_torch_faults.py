@@ -3,9 +3,10 @@
 Every ported scenario on a CPU pipeline, one case each, must come back
 ``ok`` with the JAX package's invariants: every admitted request
 resolves to exactly one verdict, no fault becomes an unhandled
-exception or a block, and each scenario's own recovery.  The scenarios
-that wait for unported modules are reported as such and never pass.
-Then a card stand-in (the engine's device reads ``cuda:0``, its tensors
+exception or a block, and each scenario's own recovery.  All 19 of the
+JAX package's scenarios are here, the four fleet ones included (their
+nodes are port serve loops on the CPU); a name that is no scenario
+never passes.  Then a card stand-in (the engine's device reads ``cuda:0``, its tensors
 stay on the CPU) runs ``dispatch_raise`` and ``dispatch_hang`` with the
 card's invariants: the breaker-open batches fail open, none blocks, and
 nothing moves to the host (``detect_cpu_only`` is never called).
@@ -19,7 +20,6 @@ import torch
 from ingress_plus_tpu.utils.faults import SCENARIOS as JAX_SCENARIOS
 from ingress_plus_tpu_torch.utils import faults
 from ingress_plus_tpu_torch.utils.faults import (
-    NOT_PORTED,
     SCENARIOS,
     run_fault_matrix,
 )
@@ -33,9 +33,9 @@ def _no_leftover_plan():
 
 
 def test_every_jax_scenario_is_ported_or_named():
-    assert set(SCENARIOS) | set(NOT_PORTED) == set(JAX_SCENARIOS)
-    assert not set(SCENARIOS) & set(NOT_PORTED)
-    assert len(SCENARIOS) == 15 and "export_5xx" in SCENARIOS
+    assert list(SCENARIOS) == list(JAX_SCENARIOS)
+    assert len(SCENARIOS) == 19 and "fleet_partition_daemon" in SCENARIOS
+    assert not hasattr(faults, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
@@ -44,14 +44,18 @@ def test_scenario_ok_on_cpu(name):
     res = rep["scenarios"][name]
     assert res["ok"], res
     assert rep["passed"]
-    assert rep["not_ported"] == sorted(NOT_PORTED)
+    assert set(rep) == {"passed", "scenarios"}
 
 
 def test_unported_scenario_never_passes():
-    rep = run_fault_matrix(only=["fleet_scrape"], device="cpu")
+    """A name the matrix does not have is reported as a failure, never
+    a vacuous pass."""
+    rep = run_fault_matrix(only=["fleet_scrape", "no_such_scenario"],
+                           device="cpu")
     assert not rep["passed"]
-    assert rep["scenarios"]["fleet_scrape"]["violations"] == [
-        "not ported: needs %s" % NOT_PORTED["fleet_scrape"]]
+    assert rep["scenarios"]["fleet_scrape"]["ok"]
+    assert rep["scenarios"]["no_such_scenario"] == {
+        "ok": False, "violations": ["no such scenario"]}
 
 
 class _FakeStream:

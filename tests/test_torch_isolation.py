@@ -354,3 +354,114 @@ def test_native_twin_and_tooling_run_with_jax_absent():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"native": True, "sqli": True, "scaled": 1007,
                    "f1": [32, "cpu"], "timed": True, "modules": []}
+
+
+_SCALE_OUT_CHILD = r"""
+import json, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None   # and of the JAX package
+import ingress_plus_tpu_torch.parallel
+import ingress_plus_tpu_torch.parallel.dcn
+import ingress_plus_tpu_torch.parallel.mesh
+import ingress_plus_tpu_torch.parallel.serve_mesh
+import ingress_plus_tpu_torch.parallel.shard
+import ingress_plus_tpu_torch.parallel.stream
+import ingress_plus_tpu_torch.serve.front
+import ingress_plus_tpu_torch.control.fleetctl
+import ingress_plus_tpu_torch.control.fleetobs
+import ingress_plus_tpu_torch.control.retune
+import ingress_plus_tpu_torch.control.retuned
+import ingress_plus_tpu_torch.utils.promparse
+import ingress_plus_tpu_torch.utils.slo
+from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+from ingress_plus_tpu_torch.parallel.serve_mesh import (
+    MeshEngine, parse_mesh_spec)
+from ingress_plus_tpu_torch.serve.normalize import Request
+from ingress_plus_tpu_torch.utils.faults import run_fault_matrix
+from ingress_plus_tpu_torch.weights import load_pack
+cr = load_pack()
+pl = DetectionPipeline(cr, device="cpu", engine=MeshEngine(
+    cr, parse_mesh_spec("2x4", platform="cpu")))
+v = pl.detect([Request(uri="/q?id=1'+UNION+SELECT+password+FROM+users--",
+                       headers={"host": "a.example"}, request_id="r1")])
+rep = run_fault_matrix(only=["fleet_node_kill"], device="cpu")
+print(json.dumps({
+    "verdict": [v[0].request_id, v[0].attack, v[0].blocked],
+    "fleet": rep["passed"],
+    "modules": sorted(m for m in sys.modules
+                      if (m == "ingress_plus_tpu"
+                          or m.startswith("ingress_plus_tpu.")
+                          or m.split(".")[0] == "jax")
+                      and sys.modules[m] is not None)}))
+"""
+
+
+def test_mesh_and_fleet_run_with_jax_absent():
+    """``parallel/``, the front, the fleet observer and controller, the
+    retune daemon and their utilities import, and a 2x4 mesh pipeline
+    and a fleet node-kill drill run, with jax and the JAX package
+    unimportable."""
+    proc = subprocess.run([sys.executable, "-c", _SCALE_OUT_CHILD],
+                          cwd=str(REPO), env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"verdict": ["r1", True, True], "fleet": True,
+                   "modules": []}
+
+
+_FRONT_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None
+sys.modules["torch"] = None        # the front must not need torch at all
+import runpy
+runpy.run_module("ingress_plus_tpu_torch.serve", run_name="__main__")
+"""
+
+
+def test_front_process_runs_without_torch(tmp_path):
+    """``python -m ingress_plus_tpu_torch.serve --front`` starts and
+    answers with torch itself unimportable: the front imports no kernel
+    and can create no CUDA context.  With its one backend absent, it
+    answers a request with its own fail-open verdict."""
+    import socket
+    import time
+
+    from ingress_plus_tpu_torch.serve.normalize import Request
+    from ingress_plus_tpu_torch.serve.protocol import (
+        RESP_MAGIC,
+        FrameReader,
+        decode_response,
+        encode_request,
+    )
+
+    sock = str(tmp_path / "front.sock")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _FRONT_CHILD, "--front", "--socket", sock,
+         "--http-port", "0", "--backend",
+         "n0=%s" % (tmp_path / "absent.sock"), "--platform", "cuda"],
+        cwd=str(REPO), env=_env(), stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 60
+        while not Path(sock).exists():
+            assert proc.poll() is None, proc.stderr.read()[-2000:]
+            assert time.time() < deadline, "socket never appeared"
+            time.sleep(0.05)
+        s = socket.socket(socket.AF_UNIX)
+        s.settimeout(30)
+        s.connect(sock)
+        s.sendall(encode_request(Request(uri="/q?a=1"), 7))
+        reader, got = FrameReader(RESP_MAGIC), []
+        while not got:
+            data = s.recv(1 << 16)
+            assert data, "front closed the connection"
+            got = reader.feed(data)
+        s.close()
+        r = decode_response(got[0])
+        assert (r["req_id"], r["attack"], r["fail_open"]) == (7, False, True)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=20)
