@@ -84,6 +84,8 @@ Phases (any failure ends the run with a non-zero exit code):
    auto`` (the pooled confirm against the inline walk, one interpreter
    lock either way).  Prints wire req/s, client-side p50/p99, the
    server's stage breakdown, the confirm workers and the streamed MB/s.
+   The port's promlint (``analysis/promlint.py``) finds nothing on the
+   first server's ``/metrics`` after its traffic.
    Then each kernel at every (B, L, carried) shape the serve path
    launched: rows of the wire traffic's own bytes cut to that shape's
    latest lengths, through the wrapper the server uses (``ByteScanner``,
@@ -112,7 +114,9 @@ Phases (any failure ends the run with a non-zero exit code):
    SIGKILLed mid-canary; the restart with the same ``--lkg-dir`` serves
    grow, every wire verdict grow's; every phase 8 health counter 0 on
    both servers.  Prints the admission stage seconds, admit-to-live, the
-   waves' req/s and p50/p99, and re-times the first server's launches
+   waves' req/s and p50/p99, runs ``python -m
+   ingress_plus_tpu_torch.control.dbg rollout`` against the server once
+   grow is live (exit 0), and re-times the first server's launches
    (both generations' serving cycles and the rollout's admission and
    shadow work, ``/debug/kernels?scope=rollout``) on grow's tables.
 10. The fault matrix: ``run_fault_matrix()`` on a batcher on the card,
@@ -144,6 +148,10 @@ Phases (any failure ends the run with a non-zero exit code):
     head's CPU verdict and the wave after live head 2's; the scorer LKG
     equal to the CPU ``persist_lkg_scorer`` of head 2 (``.json`` and
     pointer bytes, equal arrays); every phase 8 health counter 0.  The
+    ``dbg`` views ``conf``, ``health``, ``metrics``, ``latency``,
+    ``tenants``, ``rules``, ``drift``, ``breaker``, ``faults`` and
+    ``scoring`` (``python -m ingress_plus_tpu_torch.control.dbg``
+    children, all at once) against the server exit 0 with output.  The
     server's launches re-timed at their shapes on the bundled tables.
 12. The native confirm twin, the tooling and the 2x pack; (a) and (e)
     run between phases 5 and 6, beside phase 6's CPU child, and (b), (c)
@@ -182,7 +190,10 @@ Phases (any failure ends the run with a non-zero exit code):
     A 2x4 mesh whose eight entries all name the card: every step equals
     the 1x1's, eight launches a bucket, and every shard's
     ``PairScanner`` is bit-identical to ``scan_pairs`` on its tables
-    (match and state) at each bucket shape as the step lays it out.
+    (match and state) at each bucket shape as the step lays it out;
+    then every one of those launches again on its own rows and shard,
+    bit-identical and timed against the bound: the kernels line's 2x4
+    entry.
     (c) ``ring_scan`` over four entries of the card on phase 6's seven
     bodies equals one contiguous ``StepScanner`` scan.  (d) ``python -m
     ingress_plus_tpu_torch.serve --mesh 1x1`` on the card answers phase
@@ -207,7 +218,22 @@ Phases (any failure ends the run with a non-zero exit code):
     equals the sum of the nodes' own; ``python -m
     ingress_plus_tpu_torch.control.retuned --once`` against it prints
     one typed cycle record.  Both backends' health counters read 0.
-7. Read each kernel's compiled loop (SASS); print the kernels line, the
+    The port's promlint (``fleet=True``) finds nothing on the
+    aggregator's ``/fleet/metrics``, and ``dbg fleet`` against it exits 0.
+15. The quality gates on the card.  (a) ``utils/quality_report.py
+    build_report(n_benign=10000)`` on a card pipeline (``pallas3``): its
+    evasion, benign, benign-fixture and ruleset blocks equal the
+    committed ``reports/QUALITY.json`` (read as data; notes aside).  (b)
+    ``utils/prefilter_gate.py run_gate(n=2048, fuzz_per_attack=2,
+    seed=20260729)`` on a card pipeline with a CPU pipeline as its
+    reference: 0 prefilter losses, the masked prefilter matrix equal to
+    the CPU's on every chunk, and the counts the JAX package's gate
+    gives at that size (``GATE_JAX``).  Wall seconds and req/s of each;
+    their pair launches re-timed by shape.  (c) ``python -m
+    ingress_plus_tpu_torch.analysis`` (rulecheck), ``--conc`` and
+    ``--evade`` run beside (a) and (b) and exit 0 (the ``dbg`` and
+    promlint checks run in phases 8, 9, 11 and 14).
+16. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
 Kernel times are device times: several launches captured in one CUDA
@@ -834,7 +860,8 @@ def phase_pipeline(cr, dev: torch.device):
 
 def retime_launches(label: str, scanner, kernel, plain_fn, tables, inputs,
                     dev: torch.device, kind: str, inner: int = 20,
-                    reps: int = 10, batch_plain: bool = False) -> dict:
+                    reps: int = 10, batch_plain: bool = False,
+                    class_ids: bool = False) -> dict:
     """A kernel at each launch a path made, on that launch's own inputs
     ``(tokens, lengths[, state, match])``: parity of the ``scanner``'s
     launch with the plain version (match and state), device time at the
@@ -847,8 +874,12 @@ def retime_launches(label: str, scanner, kernel, plain_fn, tables, inputs,
     runs once over all of their rows stacked (its cost is per step, so
     one call costs about what one launch's did); each launch is held
     against its slice of that call, whose time is the total's
-    ``plain_ms`` (the shapes then have none of their own)."""
-    from ingress_plus_tpu_torch.ops.scan import from_numpy_u32
+    ``plain_ms`` (the shapes then have none of their own).
+
+    ``class_ids``: the scanner is a ``PairScanner``; the timed launch
+    takes the int32 class ids (``classes_for``, mapped beforehand), 4
+    bytes a token in the bound, as ``retime_shapes`` does."""
+    from ingress_plus_tpu_torch.ops.scan import classes_for, from_numpy_u32
 
     W, K1 = tables.n_words, tables.class_table.shape[0]
     run = forced(kernel, scanner)
@@ -885,8 +916,12 @@ def retime_launches(label: str, scanner, kernel, plain_fn, tables, inputs,
             torch.cuda.synchronize()
             ref, plain_ms = plain_call(args)
             check(B, L, got, ref)
-        bd = bound(len_np, L, W, K1, 1, carried, kind)
-        tm = timed_plan(lambda seg: run(*args, segment=seg), B, L, W,
+        kargs = args
+        if class_ids:
+            kargs = [classes_for(tables.byte_class, args[0], args[1]).to(
+                torch.int32).contiguous()] + args[1:]
+        bd = bound(len_np, L, W, K1, 4 if class_ids else 1, carried, kind)
+        tm = timed_plan(lambda seg: run(*kargs, segment=seg), B, L, W,
                         inner, reps)
         agg = by_shape.setdefault("%dx%d" % (B, L), {
             "B": B, "L": L, "G": tm["G"], "segments": tm["segments"],
@@ -1733,6 +1768,7 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
         launches1 = kernel_launches(metrics)
         startup_s = srv.startup_s
     engine_us = check_serve_metrics("defaults", metrics)
+    promlint_samples = lint_exposition("serve (phase 8) /metrics", metrics)
     launches = {k: launches1.get(k, 0) - launches0.get(k, 0)
                 for k in ("pair_scan", "step_scan")}
     if launches["pair_scan"] <= 0 or launches["step_scan"] <= 0:
@@ -1761,6 +1797,7 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
         "stream_mb_per_s": wire / stream_wall / 1e6,
         "launches": launches,
         "device_path": path,
+        "promlint_samples": promlint_samples,
         "confirm_workers_auto": {
             "confirm_workers": int(metric_values(
                 auto_metrics, "ipt_confirm_workers")[0][1]),
@@ -2119,6 +2156,7 @@ def _phase_rollout(root, requests, main_inputs, waves, smi, dev):
         res["rollout_status"] = {k: st[k] for k in (
             "candidate_requests", "candidate_failures",
             "candidate_fail_open", "shadow", "diff", "promotions")}
+        res["dbg"] = dbg_views("rollout (phase 9)", srv.port, ("rollout",))
         conf = http_json(srv.port, "GET", "/configuration")[1]
         if conf["ruleset"] != packs["grow"].version:
             raise SystemExit("rollout: live but serving %s" % conf["ruleset"])
@@ -2251,6 +2289,9 @@ def phase_rollout_timing(packs, shapes, pool, dev: torch.device) -> dict:
 POST_ARGS = ("--export-interval-s", "0.5", "--brute-threshold", "8",
              "--dirbust-threshold", "12")
 HEAD2_MARGIN = 1e-3
+#: phase 11: the dbg views run against the server once its traffic ran
+PHASE11_DBG = ("conf", "health", "metrics", "latency", "tenants", "rules",
+               "drift", "breaker", "faults", "scoring")
 #: the clients of the login flood and the wordlist sweep
 FLOOD_CLIENT = "203.0.113.77"
 SWEEP_CLIENT = "198.51.100.9"
@@ -2731,6 +2772,7 @@ def _post_serve(res, srv, sink, ds, ref, ref_base, traffic, calm, heads,
                           for k in ro1}}
     if res["launches"]["serve_scope"]["pair_scan"] <= 0:
         raise SystemExit("post: the server never launched the pair kernel")
+    res["dbg"] = dbg_views("post (phase 11)", srv.port, PHASE11_DBG)
 
 
 def phase_fault_matrix(dev: torch.device) -> dict:
@@ -2801,6 +2843,59 @@ def child_json(what: str, proc: subprocess.Popen, timeout: float) -> dict:
         raise SystemExit("%s failed (rc %s):\n%s" % (what, proc.returncode,
                                                      err[-4000:]))
     return json.loads(out.strip().splitlines()[-1])
+
+
+def cli_start(runs: dict) -> dict:
+    """``python -m`` children of this checkout, all started together:
+    ``runs`` maps a name to its argument list."""
+    return {name: repo_child(args) for name, args in runs.items()}
+
+
+def cli_collect(what: str, procs: dict, timeout: float = 300.0) -> dict:
+    """Wait for ``cli_start``'s children: each must exit 0 with output on
+    stdout (else all are killed and the run fails).  {name: the number
+    of lines it printed}."""
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for name, proc in procs.items():
+            so, se = proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            if proc.returncode != 0 or not so.strip():
+                raise SystemExit("%s: %s exited with %s:\n%s\n%s"
+                                 % (what, name, proc.returncode,
+                                    so[-2000:], se[-2000:]))
+            out[name] = len(so.strip().splitlines())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log("%s: %s exited 0 (lines printed: %s)"
+        % (what, ", ".join(procs), json.dumps(out)))
+    return out
+
+
+def dbg_views(what: str, port: int, cmds) -> dict:
+    """``python -m ingress_plus_tpu_torch.control.dbg <cmd> --server``
+    against a server (or, for ``fleet``, the aggregator) on ``port``."""
+    return cli_collect(what + ": dbg", cli_start({
+        cmd: ["ingress_plus_tpu_torch.control.dbg", cmd, "--server",
+              "127.0.0.1:%d" % port] for cmd in cmds}))
+
+
+def lint_exposition(what: str, text: str, fleet: bool = False) -> int:
+    """The port's promlint on a Prometheus exposition: no finding, or the
+    run fails.  The number of samples it read."""
+    from ingress_plus_tpu_torch.analysis.promlint import check_exposition
+
+    findings = check_exposition(text, fleet=fleet)
+    if findings:
+        raise SystemExit("%s: promlint finds %d: %s"
+                         % (what, len(findings), findings[:5]))
+    n = sum(1 for ln in text.splitlines() if ln and not ln.startswith("#"))
+    log("%s: promlint clean on %d samples" % (what, n))
+    return n
 
 
 def confirm_strings(pl, requests) -> dict:
@@ -3262,13 +3357,40 @@ def phase_mesh(cr, dev: torch.device, requests, want, cases,
                                      "from scan_pairs at %dx%d"
                                      % (s_, *rows_tok.shape))
                 checked += 1
+    # every launch of the 2x4 steps again, on its own rows and shard:
+    # bit-identical to scan_pairs, timed as phase 3's launches are
+    rows = [r for b, _q in buckets for r in mesh_rows(b[0], b[1], n_data)]
+    per_shard = []
+    for s_ in range(n_model):
+        tabs = sh.shard_tables(dev, s_).scan
+        per_shard.append(retime_launches(
+            "pair mesh 2x4 shard %d" % s_, sh.scanner(dev, s_), PAIR_SCAN,
+            lambda t, n, tabs=tabs: scan_pairs(tabs, t, n), tabs, rows, dev,
+            "pair", class_ids=True))
+    total24 = {k: sum(r["total"][k] for r in per_shard)
+               for k in ("launches", "ms", "one_segment_ms", "plain_ms",
+                         "bound_ms", "ops_ms", "bytes_ms")}
+    total24["bound_by"] = ("operations"
+                           if total24["ops_ms"] >= total24["bytes_ms"]
+                           else "bytes")
+    total24["max_abs_err"] = 0
+    if total24["launches"] != n_data * n_model * len(buckets):
+        raise SystemExit("mesh: %d 2x4 launches re-timed for %d made"
+                         % (total24["launches"],
+                            n_data * n_model * len(buckets)))
     res["mesh_2x4"] = {"launches": n_data * n_model * len(buckets),
                        "w_shard": sh.st.w_shard, "k_max": sh.st.k_max,
                        "shard_checks": checked,
                        "shapes": sorted("%dx%d" % x for x in seen)}
+    res["retimed_2x4"] = {"total": total24, "shapes": [
+        {"shard": i, **a} for i, r in enumerate(per_shard)
+        for a in r["shapes"].values()]}
     log("mesh (b): 2x4 on one card (w_shard %d, k_max %d): %d steps equal "
         "the 1x1's; %d (shard, data row, shape) launches bit-identical to "
-        "scan_pairs" % (sh.st.w_shard, sh.st.k_max, len(buckets), checked))
+        "scan_pairs; %d launches %.4f ms device (bound %.5f ms, %.1fx)"
+        % (sh.st.w_shard, sh.st.k_max, len(buckets), checked,
+           total24["launches"], total24["ms"], total24["bound_ms"],
+           total24["ms"] / total24["bound_ms"]))
 
     # (c) the ring over RING_SHARDS entries of the card, phase 6's bodies
     bodies = [c.body for c in cases]
@@ -3530,6 +3652,9 @@ def phase_fleet(requests, want, smi: str) -> dict:
         if fleet_total != sum(per_node.values()):
             raise SystemExit("fleet: /fleet/metrics ipt_requests_total %s, "
                              "nodes %s" % (fleet_total, per_node))
+        res["promlint_fleet_samples"] = lint_exposition(
+            "fleet (phase 14) /fleet/metrics", body.decode(), fleet=True)
+        res["dbg"] = dbg_views("fleet (phase 14)", agg_port, ("fleet",))
         lkg = tempfile.mkdtemp(prefix="ipt")
         rec = repo_json(["ingress_plus_tpu_torch.control.retuned",
                          "--fleet-url", "127.0.0.1:%d" % agg_port,
@@ -3557,6 +3682,166 @@ def phase_fleet(requests, want, smi: str) -> dict:
     res["seconds"] = time.perf_counter() - t0
     return res
 
+# --------------------------------------------- phase 15: quality gates
+
+#: phase 15: benign requests of the quality report; the prefilter-loss
+#: gate's corpus size, mutants per attack and seed
+QUALITY_BENIGN = 10_000
+GATE_N = 2048
+GATE_FUZZ = 2
+GATE_SEED = 20260729
+#: what the JAX package's gate gives at that size, fuzz and seed on the
+#: CPU: ``ingress_plus_tpu.utils.prefilter_gate.run_gate(n=2048,
+#: fuzz_per_attack=2, seed=20260729)``
+GATE_JAX = {"requests_base": 2048, "requests_fuzzed": 1178,
+            "requests_total": 3226, "rules": 2009,
+            "confirm_only_rule_hits": 6987, "normal_rule_hits": 6987,
+            "mismatches": 0, "ruleset_version": "cfd7d977236656ca"}
+#: the quality report's yardstick, read as data
+QUALITY_JSON = os.path.join("reports", "QUALITY.json")
+QUALITY_BLOCKS = ("evasion", "benign", "benign_fixture", "ruleset")
+
+
+def quality_traffic() -> list:
+    """The requests phase 15 sends (the mutants aside): the evasion
+    corpus, the benign corpus, the fixtures and the gate's corpus."""
+    from ingress_plus_tpu_torch.utils.benign_fixtures import fixture_corpus
+    from ingress_plus_tpu_torch.utils.corpus import generate_corpus
+    from ingress_plus_tpu_torch.utils.evasion import (
+        generate_benign,
+        generate_evasion,
+    )
+
+    return ([s.labeled.request for s in generate_evasion()]
+            + [b.request for b in generate_benign(n=QUALITY_BENIGN)]
+            + [f.request for f in fixture_corpus()]
+            + [lr.request for lr in generate_corpus(
+                n=GATE_N, attack_fraction=0.3, seed=GATE_SEED)])
+
+
+def phase_quality(dev: torch.device) -> tuple:
+    """Phase 15: the quality report and the prefilter-loss gate on card
+    pipelines, with the analyzers' CLIs beside them (module docstring).
+    Returns (result, the pair kernel's launches by shape, the traffic
+    pool)."""
+    from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.sigpack import load_bundled_rules
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
+    from ingress_plus_tpu_torch.utils.prefilter_gate import run_gate
+    from ingress_plus_tpu_torch.utils.quality_report import build_report
+
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           QUALITY_JSON)) as f:
+        yardstick = json.load(f)
+    analyzers = cli_start({
+        "rulecheck": ["ingress_plus_tpu_torch.analysis"],
+        "concheck": ["ingress_plus_tpu_torch.analysis", "--conc"],
+        "evadecheck": ["ingress_plus_tpu_torch.analysis", "--evade"]})
+    try:
+        def grid():
+            return {"pair_scan": {"launches": PAIR_SCAN.scope_launches(),
+                                  "shapes": PAIR_SCAN.shape_snapshot()}}
+
+        # (a) the quality report on a card pipeline
+        before = grid()
+        PAIR_SCAN.launches = 0
+        t1 = time.perf_counter()
+        rep = build_report(n_benign=QUALITY_BENIGN, device=dev)
+        torch.cuda.synchronize()
+        report_s = time.perf_counter() - t1
+        report_launches = PAIR_SCAN.launches
+        if (rep["platform"], rep["scan_impl"]) != ("cuda", "pallas3"):
+            raise SystemExit("quality: the report ran on %s/%s"
+                             % (rep["platform"], rep["scan_impl"]))
+        for block in QUALITY_BLOCKS:
+            got, want = dict(rep[block]), dict(yardstick[block])
+            got.pop("note", None)
+            want.pop("note", None)
+            if got != want:
+                raise SystemExit("quality: the card's %s block differs from "
+                                 "%s: %s vs %s"
+                                 % (block, QUALITY_JSON,
+                                    json.dumps(got)[:1500],
+                                    json.dumps(want)[:1500]))
+        sent = sum(rep[b]["total"]
+                   for b in ("evasion", "benign", "benign_fixture"))
+        log("quality (a): the card's report equals %s: evasion %d/%d, "
+            "benign FPs %d/%d, fixture FPs %d/%d, %d rules; %d requests in "
+            "%.1f s, %.1f req/s, %d pair launches"
+            % (QUALITY_JSON, rep["evasion"]["detected"],
+               rep["evasion"]["total"], rep["benign"]["false_positives"],
+               rep["benign"]["total"],
+               rep["benign_fixture"]["false_positives"],
+               rep["benign_fixture"]["total"], rep["ruleset"]["n_rules"],
+               sent, report_s, sent / report_s, report_launches))
+
+        # (b) the gate on a card pipeline, the CPU's prefilter beside it
+        cpu = DetectionPipeline(compile_ruleset(load_bundled_rules()),
+                                mode="monitoring", device="cpu")
+        t2 = time.perf_counter()
+        gate = run_gate(n=GATE_N, fuzz_per_attack=GATE_FUZZ, seed=GATE_SEED,
+                        device=dev, reference=cpu, progress=False)
+        torch.cuda.synchronize()
+        gate_s = time.perf_counter() - t2
+        launches = PAIR_SCAN.launches
+        after = grid()
+        if report_launches <= 0 or launches <= report_launches:
+            raise SystemExit("quality: the pair kernel launched %d times in "
+                             "the report and %d in the gate"
+                             % (report_launches, launches - report_launches))
+        if (gate["platform"], gate["scan_impl"]) != ("cuda", "pallas3"):
+            raise SystemExit("quality: the gate ran on %s/%s"
+                             % (gate["platform"], gate["scan_impl"]))
+        bad = {k: (gate[k], v) for k, v in GATE_JAX.items() if gate[k] != v}
+        if bad or gate["reference_unequal_chunks"]:
+            raise SystemExit("quality: the card's gate against the JAX "
+                             "package's counts (card, jax): %s; prefilter "
+                             "unequal to the cpu's on %d of %d chunks; "
+                             "samples %s"
+                             % (bad, gate["reference_unequal_chunks"],
+                                gate["reference_chunks"],
+                                gate["mismatch_samples"][:3]))
+        log("quality (b): the card's gate: %d requests (%d fuzzed), %d "
+            "confirm-only rule hits = normal, 0 mismatches, the JAX "
+            "package's counts; the masked prefilter equals the cpu's on "
+            "%d of %d chunks; %.1f s, %.1f req/s, %d pair launches"
+            % (gate["requests_total"], gate["requests_fuzzed"],
+               gate["confirm_only_rule_hits"], gate["reference_chunks"],
+               gate["reference_chunks"], gate_s,
+               gate["requests_total"] / gate_s,
+               launches - report_launches))
+    except BaseException:
+        for proc in analyzers.values():
+            proc.kill()
+            proc.wait()
+        raise
+    res = {
+        "report": {"requests": sent, "wall_s": report_s,
+                   "req_per_s": sent / report_s,
+                   "launches": report_launches,
+                   **{b: {k: rep[b][k] for k in (
+                       "total", "detected", "false_positives", "n_rules")
+                       if k in rep[b]} for b in QUALITY_BLOCKS}},
+        "gate": {"wall_s": gate_s,
+                 "req_per_s": gate["requests_total"] / gate_s,
+                 "launches": launches - report_launches,
+                 **{k: gate[k] for k in (
+                     *GATE_JAX, "reference_chunks",
+                     "reference_unequal_chunks")}},
+        "launches": launches,
+        "analyzers": cli_collect("quality (c): analyzers", analyzers),
+    }
+    shapes = shape_delta(before, after)["pair_scan"]
+    if sum(x["launches"] for x in shapes) != launches:
+        raise SystemExit("quality: %d pair launches counted, %d tallied by "
+                         "shape" % (launches,
+                                    sum(x["launches"] for x in shapes)))
+    res["seconds"] = time.perf_counter() - t0
+    return res, shapes, traffic_pool(quality_traffic(), [])
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
@@ -3583,7 +3868,8 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     """Every phase (the module docstring); ``stream_child`` is phase 6's
     CPU reference, already running."""
     from ingress_plus_tpu_torch.models import libdetect
-    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
+    from ingress_plus_tpu_torch.ops.scan import scan_pairs
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
     from ingress_plus_tpu_torch.weights import load_pack
 
@@ -3657,9 +3943,15 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     mesh = phase_mesh(cr, dev, requests, want,
                       stream_cases(STREAM_BODY, STREAM_CHUNK, SEED), pool)
     log("mesh " + json.dumps({k: v for k, v in mesh.items()
-                              if k != "retimed"}))
+                              if not k.startswith("retimed")}))
     fleet = phase_fleet(requests, want, smi)
     log("fleet " + json.dumps(fleet))
+    quality, quality_shapes, quality_pool = phase_quality(dev)
+    quality_k = retime_shapes(
+        "quality pair", ByteScanner(kern["tables"]), PAIR_SCAN,
+        lambda t, n, *c: scan_pairs(kern["tables"], t, n, *c),
+        kern["tables"], quality_shapes, quality_pool, dev, "pair")
+    log("quality " + json.dumps(quality))
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -3671,7 +3963,7 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         "rollout": rollout, "rollout_kernels": rollout_k,
         "fault_matrix": fault_matrix, "post": post, "post_kernels": post_k,
         "native_tooling": tooling, "mesh": mesh, "fleet": fleet,
-        "sass": sass,
+        "quality": quality, "quality_kernels": quality_k, "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -3788,8 +4080,44 @@ def run_phases(kernels_only: bool, stream_child) -> int:
               "from the work the server counted, 4 bytes a token"
               % mesh_t["launches"],
         segments=segment_rows("mesh path", mesh["retimed"]["shapes"].values()))]
+    mesh24 = mesh["retimed_2x4"]["total"]
+    mesh_entries.append(entry(
+        "pair_scan", "mesh (phase 13 (b)): the 2x4 mesh's steps on one "
+        "card, pallas2 on each shard's class-id tables", mesh24,
+        mesh24["max_abs_err"], configuration="class_id (pallas2)",
+        parity="bit-identical match and state at every one of the %d "
+               "launches, each on its own rows and shard's tables (w_shard "
+               "%d); the steps equal the 1x1's on every bucket"
+               % (mesh24["launches"], mesh["mesh_2x4"]["w_shard"]),
+        shape="the 2x4 steps' %d launches (%d shards x %d data rows x %d "
+              "buckets), each timed on its own inputs, summed"
+              % (mesh24["launches"], MESH_SHAPE[1], MESH_SHAPE[0],
+                 mesh["buckets"]),
+        segments=[{"path": "2x4 mesh, shard %d" % a["shard"],
+                   **{k: a[k] for k in ("launches", "B", "L", "G",
+                                        "segments", "ms",
+                                        "one_segment_ms")}}
+                  for a in mesh["retimed_2x4"]["shapes"]]))
+    qt = quality_k["total"]
+    quality_entries = [entry(
+        "pair_scan", "quality gates (phase 15): build_report and run_gate "
+        "batches on pallas3 (raw_byte)", qt, qt["max_abs_err"],
+        parity="bit-identical match and state at each of the phase's %d "
+               "(B, L) shapes; the gate's masked prefilter equals the cpu "
+               "pipeline's on all %d chunks"
+               % (len(quality_k["shapes"]),
+                  quality["gate"]["reference_chunks"]),
+        shape="the phase's %d launches (report %d, gate %d), each shape's "
+              "device time once per launch of it (rows cut from the "
+              "phase's traffic to the shape's latest lengths); bound from "
+              "the work the launches counted"
+              % (quality["launches"], quality["report"]["launches"],
+                 quality["gate"]["launches"]),
+        segments=segment_rows("quality gates",
+                              quality_k["shapes"].values()))]
     print(json.dumps({"kernels": serve_entries + mesh_entries
-                      + rollout_entries + post_entries + [entry(
+                      + rollout_entries + post_entries + quality_entries
+                      + [entry(
         "pair_scan", "library: pallas3 batch path (phase 3)", tot,
         max(s[c]["max_abs_err"] for s in kern["shapes"]
             for c in ("raw_byte", "class_id")),

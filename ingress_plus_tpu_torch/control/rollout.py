@@ -361,9 +361,12 @@ class RolloutController:
         # promote() needs that same (non-reentrant) lock — the batcher
         # calls tick() once per cycle after releasing it
         self._promote_pending = False
-        # the admission thread's own CUDA stream on a card (created at
-        # the first card admission; admissions are serialized)
-        self._admit_stream = None
+        # the admission thread's own CUDA stream on a card, made here
+        # once and never written again: admissions run on executor
+        # threads, and a first-use check-then-set there is a race
+        dev = batcher.pipeline.engine.device
+        self._admit_stream = (torch.cuda.Stream(dev)
+                              if dev.type == "cuda" else None)
 
     # ------------------------------------------------------- accounting
 
@@ -544,8 +547,6 @@ class RolloutController:
         dev = self.batcher.pipeline.engine.device
         stack = contextlib.ExitStack()
         if dev.type == "cuda":
-            if self._admit_stream is None:
-                self._admit_stream = torch.cuda.Stream(dev)
             stack.enter_context(torch.cuda.device(dev))
             stack.enter_context(torch.cuda.stream(self._admit_stream))
             stack.enter_context(launch_scope(ROLLOUT_SCOPE))

@@ -4,10 +4,10 @@ conservation under concurrent traffic, histogram bucket-merge vs a
 reference, traffic-weighted profile-merge determinism, skew/stale
 detection, SLO burn math on an injected clock and the /fleet/*
 surfaces — the JAX package's tests of its fleet plane, run on the
-port's modules.  The JAX package's promlint and ``dbg fleet`` renderer
-(pure functions of text) judge the port's output, and the parser, the
-SLO engine and the observer are held to the JAX ones on the same
-inputs.
+port's modules.  The port's promlint and ``dbg fleet`` renderer judge
+the port's output, the JAX package's (pure functions of text) judge it
+beside them and must agree, and the parser, the SLO engine and the
+observer are held to the JAX ones on the same inputs.
 
 Everything here runs in-process over fake node transports; the
 fault-matrix ``fleet_scrape`` scenario covers the mid-run stale drill
@@ -22,10 +22,14 @@ import urllib.request
 
 import pytest
 
-from ingress_plus_tpu.analysis.promlint import check_exposition
+from ingress_plus_tpu.analysis.promlint import (
+    check_exposition as jax_check_exposition,
+)
+from ingress_plus_tpu_torch.analysis.promlint import check_exposition
 from ingress_plus_tpu_torch.compiler.profile import (
     PROFILE_VERSION, MeasuredProfile, ProfileVersionError)
-from ingress_plus_tpu.control.dbg import render_fleet
+from ingress_plus_tpu.control.dbg import render_fleet as jax_render_fleet
+from ingress_plus_tpu_torch.control.dbg import render_fleet
 from ingress_plus_tpu_torch.control.fleetobs import FleetObserver, ScrapeError
 from ingress_plus_tpu_torch.utils import promparse
 from ingress_plus_tpu_torch.utils.faults import (
@@ -509,12 +513,15 @@ def test_fleet_endpoints_promlint_and_dbg_render():
     # the aggregated exposition passes its own lint (fleet mode allows
     # the deliberate node=/agg= labels, nothing else)
     assert check_exposition(text, fleet=True) == []
+    assert jax_check_exposition(text, fleet=True) == []
     assert 'ipt_slo_burn_rate{slo="availability",window="fast"}' in text
     assert 'ipt_queue_depth{agg="mean"}' in text
     assert 'ipt_queue_depth{node="n1"}' in text
     # per-node lint must reject those same labels
     assert any("node-identity label" in f
                for f in check_exposition(text, fleet=False))
+    assert check_exposition(text, fleet=False) == jax_check_exposition(
+        text, fleet=False)
 
     for path in ("/fleet/healthz", "/fleet/drift", "/fleet/slo",
                  "/fleet/profile"):
@@ -531,6 +538,7 @@ def test_fleet_endpoints_promlint_and_dbg_render():
 
     health = obs.healthz()
     out = render_fleet(health, obs.fleet_slo())
+    assert out == jax_render_fleet(health, obs.fleet_slo())
     assert out.startswith("fleet:")
     for needle in ("n0", "n1", "n2", "generation", "availability",
                    "latency_p99"):
