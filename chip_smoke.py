@@ -233,7 +233,29 @@ Phases (any failure ends the run with a non-zero exit code):
     ingress_plus_tpu_torch.analysis`` (rulecheck), ``--conc`` and
     ``--evade`` run beside (a) and (b) and exit 0 (the ``dbg`` and
     promlint checks run in phases 8, 9, 11 and 14).
-16. Read each kernel's compiled loop (SASS); print the kernels line, the
+16. The controller render layer on the card: BASELINE.json config #4
+    (``config4_manifests``: 256 Ingresses in 64 namespaces, each
+    namespace with its own 1-4 of the pack's attack tags, 16 with a
+    ``wallarm-acl``; a ConfigMap with two ACLs).
+    ``control/deploy.py write_static`` renders the port's manifests; the
+    ``serve-0`` container's command runs with its rendered env and only
+    these changes, each printed: this run's Python for ``python``, the
+    socket, spool and LKG paths in a temporary directory, a free
+    ``--http-port``, and no ``--rules-dir`` (the bundled pack: the
+    ``rules/crs`` tree alone holds 252 of its 2009 rules).  Seconds to
+    ``/readyz`` beside the rendered liveness probe's delay.
+    ``SyncController.sync``: sync 1 ``reload``, the rendered nginx.conf
+    lint-clean, tenants 1..256, both pushes landed at the first attempt,
+    257 mask rows on ``/configuration``; phase 3's requests, each with a
+    seeded tenant in 0..256 and client IP (``config4_traffic``), over
+    the wire: every verdict equals the port's CPU pipeline's under
+    ``tenant_masks`` of the synced tags and the pushed ACLs; sync 2 (32
+    Ingresses retagged, the ACL content changed) ``dynamic`` with the
+    text unchanged, both pushes landed, a second wave held to the new
+    state; sync 3 ``noop`` with no POST.  The server's pair (and step)
+    launches re-run by shape, bit-identical and timed; every health
+    counter 0.
+17. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
 Kernel times are device times: several launches captured in one CUDA
@@ -1408,11 +1430,14 @@ class ServeChild:
     200; stopped (terminate, then kill) on exit."""
 
     def __init__(self, *args: str, env: dict = None, sock: str = None,
-                 port: int = None):
+                 port: int = None, argv: list = None):
         self.args = args
         self.env = env
         self.sock = sock
         self.port = port
+        #: a whole command line to run instead (phase 16: the rendered
+        #: one), which names ``sock`` and ``port`` itself
+        self.argv = argv
 
     def __enter__(self):
         self.start()
@@ -1429,12 +1454,12 @@ class ServeChild:
                              % self.sock)
         self.port = self.port or free_port()
         self.log_path = os.path.join(self.tmp, "serve.log")
+        argv = self.argv or [
+            sys.executable, "-m", "ingress_plus_tpu_torch.serve",
+            "--socket", self.sock, "--http-port", str(self.port), *self.args]
         with open(self.log_path, "w") as logf:
             self.child = subprocess.Popen(
-                [sys.executable, "-m", "ingress_plus_tpu_torch.serve",
-                 "--socket", self.sock, "--http-port", str(self.port),
-                 *self.args],
-                stdout=logf, stderr=subprocess.STDOUT, env=self.env,
+                argv, stdout=logf, stderr=subprocess.STDOUT, env=self.env,
                 cwd=os.path.dirname(os.path.abspath(__file__)))
         self.t_start = time.perf_counter()
         return self
@@ -1462,7 +1487,8 @@ class ServeChild:
         except BaseException:
             self.__exit__(None, None, None)
             raise
-        log("serve %s: ready in %.1fs (%s)" % (" ".join(self.args),
+        log("serve %s: ready in %.1fs (%s)" % (" ".join(self.argv
+                                                      or self.args),
                                               self.startup_s, "; ".join(
             ln for ln in self.log().splitlines() if ln)))
         return self
@@ -1993,14 +2019,15 @@ def phase_rollout_kernels(packs, main_inputs, waves, dev) -> dict:
     return out
 
 
-def reference_keys(cr, requests) -> tuple:
-    """The port's CPU verdict keys of ``requests`` on pack ``cr``, with
-    the Batcher's oversized reroute applied (as phase 8 does), and the
+def reference_keys(cr, requests, **state) -> tuple:
+    """The port's CPU verdict keys of ``requests`` on pack ``cr`` (and
+    ``state``: the pipeline's tenant masks and ACLs, phase 16), with the
+    Batcher's oversized reroute applied (as phase 8 does), and the
     indices of the rerouted requests."""
     from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
     from ingress_plus_tpu_torch.serve.batcher import Batcher
 
-    cpu = DetectionPipeline(cr, device="cpu", fail_open=False)
+    cpu = DetectionPipeline(cr, device="cpu", fail_open=False, **state)
     keys = [verdict_key(v) for v in run_pipeline(cpu, requests)]
     plan_of = SimpleNamespace(OVERSIZE_THRESHOLD=Batcher.OVERSIZE_THRESHOLD)
     rerouted = []
@@ -3842,6 +3869,374 @@ def phase_quality(dev: torch.device) -> tuple:
     return res, shapes, traffic_pool(quality_traffic(), [])
 
 
+# ------------------------------- phase 16: the controller sync, config #4
+
+#: phase 16: BASELINE.json config #4 -- 64 namespaces x 4 Ingresses, each
+#: namespace with its own subset of the bundled pack's attack-* tags
+CONFIG4_SEED = 20260801
+CONFIG4_NAMESPACES = 64
+CONFIG4_PER_NAMESPACE = 4
+#: the Ingresses of this many namespaces change their tags in sync 2
+CONFIG4_RETAGGED = 8
+CONFIG4_ACL_INGRESSES = 16
+#: every attack-* tag of the bundled pack
+CONFIG4_TAGS = ("attack-generic", "attack-java", "attack-leak", "attack-lfi",
+                "attack-nodejs", "attack-php", "attack-protocol",
+                "attack-rce", "attack-rfi", "attack-scanner",
+                "attack-session", "attack-sqli", "attack-xss")
+#: the ConfigMap's ACL content, by revision (sync 1, sync 2)
+CONFIG4_ACLS = {
+    1: {"edge": {"deny": ["203.0.113.0/24"],
+                 "greylist": ["198.51.100.0/24"]},
+        "partners": {"allow": ["192.0.2.0/24"]}},
+    2: {"edge": {"deny": ["203.0.113.0/25"],
+                 "greylist": ["198.51.100.0/24"]},
+        "partners": {"allow": ["192.0.2.0/25"],
+                     "deny": ["203.0.113.128/25"]}},
+}
+
+
+def config4_manifests(revision: int = 1,
+                      sidecar_http: str = "127.0.0.1:9901") -> tuple:
+    """Config #4 as k8s-style dicts: (256 Ingress dicts, ConfigMap dict).
+    Every Ingress has its own host and 1-3 paths (some ``Exact``),
+    ``wallarm-mode: block``, ``detection-backend: tpu`` and its
+    namespace's ``detection-rule-tags`` (1-4 attack tags, seeded, a
+    subset no other namespace has); 16
+    carry a ``wallarm-acl``.  ``revision`` 2 changes only the tags of
+    ``CONFIG4_RETAGGED`` namespaces and the ACL content."""
+    rng = random.Random(CONFIG4_SEED)
+    ns_tags: list = []
+
+    def fresh(r):
+        """A tag subset no namespace has yet."""
+        while True:
+            tags = sorted(r.sample(CONFIG4_TAGS, r.randint(1, 4)))
+            if tags not in ns_tags:
+                return tags
+
+    for _ in range(CONFIG4_NAMESPACES):
+        ns_tags.append(fresh(rng))
+    n = CONFIG4_NAMESPACES * CONFIG4_PER_NAMESPACE
+    acl_of = {i: ("partners" if k % 4 == 3 else "edge") for k, i in
+              enumerate(sorted(rng.sample(range(n), CONFIG4_ACL_INGRESSES)))}
+    shapes = [(rng.randint(1, 3), rng.random() < 0.3) for _ in range(n)]
+    if revision == 2:
+        rng2 = random.Random(CONFIG4_SEED + 1)
+        for ns in rng2.sample(range(CONFIG4_NAMESPACES), CONFIG4_RETAGGED):
+            ns_tags[ns] = fresh(rng2)
+    prefix = "nginx.ingress.kubernetes.io/"
+    items = []
+    for i in range(n):
+        ns, k = divmod(i, CONFIG4_PER_NAMESPACE)
+        ann = {prefix + "wallarm-mode": "block",
+               prefix + "detection-backend": "tpu",
+               prefix + "detection-rule-tags": ",".join(ns_tags[ns])}
+        if i in acl_of:
+            ann[prefix + "wallarm-acl"] = acl_of[i]
+        n_paths, exact = shapes[i]
+        paths = [{"path": p, "pathType": "Prefix",
+                  "backend": {"service": {"name": "app-%03d" % i,
+                                          "port": {"number": 8080}}}}
+                 for p in ("/", "/api", "/static")[:n_paths]]
+        if exact:
+            paths[-1]["path"] = "/login"
+            paths[-1]["pathType"] = "Exact"
+        items.append({
+            "metadata": {"name": "app-%d" % k,
+                         "namespace": "tenant-%02d" % ns,
+                         "annotations": ann},
+            "spec": {"rules": [{
+                "host": "app%d.tenant-%02d.example.com" % (k, ns),
+                "http": {"paths": paths}}]}})
+    configmap = {"data": {
+        "enable-detection": "true", "detection-backend": "tpu",
+        "default-mode": "block", "sidecar-http": sidecar_http,
+        "acls": json.dumps(CONFIG4_ACLS[revision], sort_keys=True)}}
+    return items, configmap
+
+
+def config4_traffic(n: int, tenants: int, acl_tenants) -> list:
+    """(tenant, client_ip) for ``n`` requests, seeded: tenants uniform in
+    0..``tenants``; a quarter of the ACL'd tenants' requests come from
+    203.0.113.0/24 and a tenth from 192.0.2.0/24, a tenth of the others'
+    from 203.0.113.0/24 (no ACL binds them), the rest from 10.0.0.0/8."""
+    rng = random.Random(CONFIG4_SEED + 2)
+    acl_tenants = set(acl_tenants)
+    out = []
+    for _ in range(n):
+        t = rng.randint(0, tenants)
+        u = rng.random()
+        bound = t in acl_tenants
+        if u < (0.25 if bound else 0.1):
+            ip = "203.0.113.%d" % rng.randint(1, 254)
+        elif bound and u < 0.35:
+            ip = "192.0.2.%d" % rng.randint(1, 254)
+        else:
+            ip = "10.%d.%d.%d" % (rng.randint(0, 255), rng.randint(0, 255),
+                                  rng.randint(1, 254))
+        out.append((t, ip))
+    return out
+
+
+def rendered_container(text: str, name: str) -> dict:
+    """One container of a rendered manifest (``control/deploy.py``'s
+    layout): its ``command`` argv (empty where it has none), its ``env``
+    and its liveness probe's ``initialDelaySeconds``."""
+    lines = text.splitlines()
+    at = lines.index("        - name: %s" % name)
+    end = next((k for k in range(at + 1, len(lines))
+                if lines[k].startswith("        - name: ")), len(lines))
+    out = {"command": [], "env": {}, "liveness_delay_s": None}
+    key = None
+    for ln in lines[at + 1:end]:
+        if ln.startswith("          ") and not ln.startswith("           "):
+            key = ln.strip().rstrip(":")
+            continue
+        item = ln.strip()
+        if key == "command" and item.startswith("- "):
+            out["command"].append(item[2:].strip('"'))
+        elif key == "env" and item.startswith("- {"):
+            kv = dict(p.split(": ", 1) for p in item[3:-1].split(", "))
+            out["env"][kv["name"]] = kv["value"].strip('"')
+        elif key == "livenessProbe" and \
+                item.startswith("initialDelaySeconds:"):
+            out["liveness_delay_s"] = int(item.split(":")[1])
+    return out
+
+
+def served_command(rendered: list, root: str, port: int) -> tuple:
+    """The rendered ``serve-0`` argv with this run's changes: this run's
+    Python for ``python``, the socket, spool and LKG paths under
+    ``root``, ``--http-port`` a free port, ``--rules-dir`` dropped (the
+    server serves the bundled pack).  Returns (argv, socket, changes)."""
+    argv = list(rendered)
+    if argv[:1] != ["python"]:
+        raise SystemExit("controller: the render runs %r, not python"
+                         % argv[:1])
+    argv[0] = sys.executable
+    changes = ["python -> %s" % sys.executable]
+    paths = {"--socket": os.path.join(root, "serve-0.sock"),
+             "--spool-dir": os.path.join(root, "spool"),
+             "--lkg-dir": os.path.join(root, "lkg"),
+             "--http-port": str(port)}
+    for flag, value in paths.items():
+        k = argv.index(flag)
+        changes.append("%s %s -> %s" % (flag, argv[k + 1], value))
+        argv[k + 1] = value
+    k = argv.index("--rules-dir")
+    changes.append("--rules-dir %s dropped (the bundled pack)" % argv[k + 1])
+    del argv[k:k + 2]
+    return argv, paths["--socket"], changes
+
+
+def config4_keys(cr, requests, tags, acl_payload) -> list:
+    """The port's CPU verdict keys of ``requests`` under one controller
+    state: the tenant masks of ``tags`` and the ACLs and bindings of the
+    pushed ``acl_payload`` (None: no masks, no ACLs), with the Batcher's
+    oversized reroute applied as the server does."""
+    from ingress_plus_tpu_torch.control.sync import tenant_masks
+    from ingress_plus_tpu_torch.models.acl import AclStore
+
+    store = AclStore()
+    binding = {}
+    if acl_payload is not None:
+        store.swap(acl_payload["acls"])
+        binding = {int(t): name
+                   for t, name in acl_payload["tenant_acl"].items()}
+    return reference_keys(
+        cr, requests,
+        tenant_rule_mask=tenant_masks(cr, tags) if tags else None,
+        acl_store=store, tenant_acl=binding)[0]
+
+
+def phase_controller(requests, smi: str, server_args=()) -> tuple:
+    """Phase 16: config #4 through the port's controller render layer
+    onto a card server (see the module docstring).  ``requests`` are
+    phase 3's; ``server_args`` are added to the rendered command (none
+    on the card).  Returns the result and the server's launches by
+    kernel and shape."""
+    root = tempfile.mkdtemp(prefix="ipt16")
+    try:
+        return _phase_controller(root, requests, smi, tuple(server_args))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_controller(root, requests, smi, server_args):
+    import dataclasses
+
+    from ingress_plus_tpu_torch.control.admission import lint_rendered
+    from ingress_plus_tpu_torch.control.deploy import write_static
+    from ingress_plus_tpu_torch.control.objects import ConfigMap, Ingress
+    from ingress_plus_tpu_torch.control.sync import (
+        SyncController,
+        tenant_masks,
+    )
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    t_phase = time.perf_counter()
+    res = {"card": smi}
+    # 1. the deploy render, and the server its serve-0 container runs
+    write_static(os.path.join(root, "static"))
+    with open(os.path.join(root, "static", "deployment.yaml")) as f:
+        serve0 = rendered_container(f.read(), "serve-0")
+    port = free_port()
+    argv, sock, changes = served_command(serve0["command"], root, port)
+    argv += list(server_args)
+    changes += ["%s added" % a for a in server_args]
+    log("controller: rendered serve-0: %s; env %s; run with these changes: "
+        "%s" % (" ".join(serve0["command"]), serve0["env"] or "none",
+                "; ".join(changes)))
+    res.update(rendered_command=serve0["command"], rendered_env=serve0["env"],
+               changes=changes)
+    srv = ServeChild(argv=argv, env=dict(os.environ, **serve0["env"]),
+                     sock=sock, port=port).start()
+    # the objects and the CPU references are host work, done while the
+    # server starts
+    sidecar = "127.0.0.1:%d" % port
+    objects = {}
+    for rev in (1, 2):
+        items, cm = config4_manifests(rev, sidecar)
+        objects[rev] = ([Ingress.from_dict(d) for d in items],
+                        ConfigMap.from_dict(cm))
+    cr = load_pack()
+    try:
+        srv.ready()
+        res["startup_s"] = srv.startup_s
+        res["liveness_initial_delay_s"] = serve0["liveness_delay_s"]
+        log("controller: /readyz after %.1f s; the rendered liveness probe "
+            "waits %s s" % (srv.startup_s, serve0["liveness_delay_s"]))
+        sc = SyncController()
+        posts = []
+        post = sc._post
+
+        def counted(path, obj):
+            posts.append(path)
+            return post(path, obj)
+
+        sc._post = counted
+        # 2. sync 1: reload, both pushes land at the first attempt
+        t = time.perf_counter()
+        r1 = sc.sync(*objects[1])
+        sync1_s = time.perf_counter() - t
+        cfg = r1.configuration
+        tags1 = cfg.tenant_tags()
+        problems = lint_rendered(r1.rendered)
+        if (r1.action != "reload" or problems or r1.errors
+                or not (r1.pushed_tenants and r1.pushed_acls)
+                or sorted(tags1) != list(range(1, 257)) or len(posts) != 2):
+            raise SystemExit(
+                "controller: sync 1 gave action %s, lint %s, errors %s, "
+                "pushed %s/%s, %d tenants, %d posts"
+                % (r1.action, problems[:3], r1.errors[:3], r1.pushed_tenants,
+                   r1.pushed_acls, len(tags1), len(posts)))
+        status, conf = http_json(port, "GET", "/configuration")
+        if status != 200 or conf["tenants"] != 257 or \
+                conf["acls"] != sorted(CONFIG4_ACLS[1]):
+            raise SystemExit("controller: /configuration after sync 1: %d %s"
+                             % (status, conf))
+        distinct = len(np.unique(tenant_masks(cr, tags1)[1:], axis=0))
+        acl_tenants = sorted(cfg.tenant_acls())
+        log("controller: sync 1 %s in %.3f s: %d servers, %d tenants (%d "
+            "distinct masks), %d ACL bindings, nginx.conf %d lines, lint "
+            "clean; both pushes landed at the first attempt; the server "
+            "holds %d mask rows"
+            % (r1.action, sync1_s, len(cfg.servers), len(tags1), distinct,
+               len(acl_tenants), r1.rendered.count("\n"), conf["tenants"]))
+        traffic = config4_traffic(len(requests), 256, acl_tenants)
+        reqs = [dataclasses.replace(r, tenant=t, client_ip=ip)
+                for r, (t, ip) in zip(requests, traffic)]
+        t = time.perf_counter()
+        plain = config4_keys(cr, reqs, None, None)
+        masked = config4_keys(cr, reqs, tags1, None)
+        want1 = config4_keys(cr, reqs, tags1, sc._channels["acl"].payload)
+        ref_s = time.perf_counter() - t
+        shapes0 = kernel_shapes(srv)
+        launches0 = kernel_launches(srv.metrics())
+        # 3. wave 1 under sync 1's state
+        wave1 = request_wave(sock, reqs, [want1])
+        acl_blocked = sum(1 for k in map(json.loads, want1)
+                          if k[2] and "acl" in k[5])
+        res.update(
+            sync1={"action": r1.action, "seconds": sync1_s,
+                   "servers": len(cfg.servers), "tenants": len(tags1),
+                   "distinct_masks": distinct,
+                   "acl_bindings": len(acl_tenants),
+                   "rendered_lines": r1.rendered.count("\n"),
+                   "server_mask_rows": conf["tenants"]},
+            wave1={**wave1, "identical_verdicts": len(reqs),
+                   "changed_by_masks": sum(a != b for a, b in
+                                           zip(plain, masked)),
+                   "changed_by_acls": sum(a != b for a, b in
+                                          zip(masked, want1)),
+                   "acl_blocked": acl_blocked},
+            cpu_reference_s=ref_s)
+        log("controller: wave 1, %d requests over the wire, identical to the "
+            "cpu pipeline under the pushed masks and ACLs; the masks changed "
+            "%d verdicts against the unmasked pipeline's, the ACLs %d more "
+            "(%d blocked by an ACL); %.1f req/s, p50 %.2f ms, p99 %.2f ms"
+            % (len(reqs), res["wave1"]["changed_by_masks"],
+               res["wave1"]["changed_by_acls"], acl_blocked,
+               wave1["wire_req_per_s"], wave1["p50_ms"], wave1["p99_ms"]))
+        # 4. sync 2: some namespaces' tags and the ACL content change
+        n_posts = len(posts)
+        r2 = sc.sync(*objects[2])
+        tags2 = r2.configuration.tenant_tags()
+        retagged = sum(tags1[t] != tags2[t] for t in tags1)
+        if (r2.action != "dynamic" or r2.rendered != r1.rendered
+                or r2.errors or not (r2.pushed_tenants and r2.pushed_acls)
+                or len(posts) - n_posts != 2
+                or retagged != CONFIG4_RETAGGED * CONFIG4_PER_NAMESPACE):
+            raise SystemExit(
+                "controller: sync 2 gave action %s, same text %s, errors "
+                "%s, pushed %s/%s, %d posts, %d retagged"
+                % (r2.action, r2.rendered == r1.rendered, r2.errors[:3],
+                   r2.pushed_tenants, r2.pushed_acls, len(posts) - n_posts,
+                   retagged))
+        status, conf = http_json(port, "GET", "/configuration")
+        if status != 200 or conf["tenants"] != 257:
+            raise SystemExit("controller: /configuration after sync 2: %d %s"
+                             % (status, conf))
+        want2 = config4_keys(cr, reqs, tags2, sc._channels["acl"].payload)
+        wave2 = request_wave(sock, reqs, [want2])
+        # 5. sync 3: nothing changed, nothing posted
+        n_posts = len(posts)
+        r3 = sc.sync(*objects[2])
+        if r3.action != "noop" or len(posts) != n_posts or r3.errors:
+            raise SystemExit("controller: sync 3 gave action %s with %d "
+                             "posts, errors %s"
+                             % (r3.action, len(posts) - n_posts, r3.errors))
+        metrics = srv.metrics()
+        shapes1 = kernel_shapes(srv)
+        launches1 = kernel_launches(metrics)
+    finally:
+        srv.__exit__(None, None, None)
+    check_serve_metrics("controller (phase 16)", metrics)
+    launches = {k: launches1.get(k, 0) - launches0.get(k, 0)
+                for k in ("pair_scan", "step_scan")}
+    if launches["pair_scan"] <= 0:
+        raise SystemExit("controller: the pair kernel never launched: %s"
+                         % launches)
+    res.update(
+        sync2={"action": r2.action, "retagged_ingresses": retagged,
+               "rendered_unchanged": True},
+        wave2={**wave2, "identical_verdicts": len(reqs),
+               "changed_against_wave1": sum(a != b for a, b in
+                                            zip(want1, want2))},
+        sync3={"action": r3.action, "posts": 0},
+        posts=len(posts), launches=launches,
+        seconds=time.perf_counter() - t_phase)
+    log("controller: sync 2 %s (%d Ingresses retagged, nginx.conf "
+        "unchanged), wave 2 identical to the cpu pipeline under the new "
+        "state (%d verdicts changed from wave 1), %.1f req/s; sync 3 %s with "
+        "no POST; %d POSTs in all; launches %s; phase 16 %.1f s"
+        % (r2.action, retagged, res["wave2"]["changed_against_wave1"],
+           wave2["wire_req_per_s"], r3.action, len(posts), launches,
+           res["seconds"]))
+    return res, shape_delta(shapes0, shapes1)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
@@ -3952,6 +4347,10 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         lambda t, n, *c: scan_pairs(kern["tables"], t, n, *c),
         kern["tables"], quality_shapes, quality_pool, dev, "pair")
     log("quality " + json.dumps(quality))
+    controller, controller_shapes = phase_controller(requests, smi)
+    log("controller " + json.dumps(controller))
+    controller_k = phase_serve_kernels(kern["tables"], controller_shapes,
+                                       pool, dev, "controller")
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -3963,7 +4362,9 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         "rollout": rollout, "rollout_kernels": rollout_k,
         "fault_matrix": fault_matrix, "post": post, "post_kernels": post_k,
         "native_tooling": tooling, "mesh": mesh, "fleet": fleet,
-        "quality": quality, "quality_kernels": quality_k, "sass": sass,
+        "quality": quality, "quality_kernels": quality_k,
+        "controller": controller, "controller_kernels": controller_k,
+        "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -4115,8 +4516,28 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                  quality["gate"]["launches"]),
         segments=segment_rows("quality gates",
                               quality_k["shapes"].values()))]
+    controller_entries = [entry(
+        name, "%s: controller sync, config #4 (phase 16)" % name,
+        controller_k[name]["total"], controller_k[name]["total"]["max_abs_err"],
+        parity="bit-identical match and state at each of the phase 16 "
+               "server's %d (B, L, carried) shapes on the bundled tables"
+               % len(controller_k[name]["shapes"]),
+        shape="the phase 16 server's %d launches (two waves of %d "
+              "requests over 257 tenants' masks and the pushed ACLs), each "
+              "shape's device time once per launch of it (rows cut from the "
+              "wire traffic to the shape's latest lengths); bound from the "
+              "work the server counted"
+              % (controller_k[name]["total"]["launches"],
+                 controller["wave1"]["requests"]),
+        x_bound=(controller_k[name]["total"]["ms"]
+                 / controller_k[name]["total"]["bound_ms"]),
+        segments=segment_rows("controller path",
+                              controller_k[name]["shapes"].values()))
+        for name in ("pair_scan", "step_scan")
+        if controller_k[name]["total"]["launches"]]
     print(json.dumps({"kernels": serve_entries + mesh_entries
                       + rollout_entries + post_entries + quality_entries
+                      + controller_entries
                       + [entry(
         "pair_scan", "library: pallas3 batch path (phase 3)", tot,
         max(s[c]["max_abs_err"] for s in kern["shapes"]

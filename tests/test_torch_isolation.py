@@ -465,3 +465,70 @@ def test_front_process_runs_without_torch(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=20)
+
+
+_CONTROL_CHILD = r"""
+import json, sys, tempfile
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["jaxlib"] = None
+sys.modules["ingress_plus_tpu"] = None   # and of the JAX package
+import ingress_plus_tpu_torch.control.admission as admission
+import ingress_plus_tpu_torch.control.annotations
+import ingress_plus_tpu_torch.control.config
+import ingress_plus_tpu_torch.control.deploy as deploy
+import ingress_plus_tpu_torch.control.model
+import ingress_plus_tpu_torch.control.objects as objects
+import ingress_plus_tpu_torch.control.sync as sync
+import ingress_plus_tpu_torch.control.template
+from chip_smoke import config4_manifests
+items, cm = config4_manifests(1)
+ings = [objects.Ingress.from_dict(d) for d in items]
+r = sync.SyncController().sync(ings, objects.ConfigMap.from_dict(cm),
+                               push=False)
+print(json.dumps({
+    "action": r.action, "tenants": len(r.configuration.tenant_tags()),
+    "lint": admission.lint_rendered(r.rendered),
+    "admitted": admission.validate(ings[0], ings).allowed,
+    "written": deploy.write_static(tempfile.mkdtemp()),
+    "modules": sorted(m for m in sys.modules
+                      if (m == "ingress_plus_tpu"
+                          or m.startswith("ingress_plus_tpu.")
+                          or m.split(".")[0] == "jax")
+                      and sys.modules[m] is not None)}))
+"""
+
+
+def test_controller_render_layer_runs_with_jax_absent():
+    """The seven controller modules (objects, annotations, config, model,
+    template, admission, deploy) and the whole of sync import, render,
+    admit, sync config #4 and write the manifests with jax and the JAX
+    package unimportable."""
+    proc = subprocess.run([sys.executable, "-c", _CONTROL_CHILD],
+                          cwd=str(REPO), env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"action": "reload", "tenants": 256, "lint": [],
+                   "admitted": True,
+                   "written": ["configmap.yaml", "deployment.yaml",
+                               "fleet.yaml", "service.yaml"],
+                   "modules": []}
+
+
+def test_control_package_imports_no_torch():
+    """``import ingress_plus_tpu_torch.control`` (which ``python -m
+    ingress_plus_tpu_torch.control.fleetobs`` and ``.retuned`` run first)
+    and its render layer need neither torch nor numpy."""
+    code = ("import sys\n"
+            "sys.modules['torch'] = None\n"
+            "sys.modules['numpy'] = None\n"
+            "import ingress_plus_tpu_torch.control as c\n"
+            "import ingress_plus_tpu_torch.control.admission\n"
+            "import ingress_plus_tpu_torch.control.deploy\n"
+            "g = c.GlobalConfig()\n"
+            "print(len(c.render(c.build_configuration([], g), g)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert int(proc.stdout.strip()) > 0
