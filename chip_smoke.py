@@ -14,9 +14,10 @@ at one segment (the same kernel unsplit) in the same run.
 Phases (any failure ends the run with a non-zero exit code):
 
 1. Build both kernels from ``ingress_plus_tpu_torch/csrc`` (one nvcc per
-   source, sm_90a) and the native confirm twin (``csrc/libdetect.cc``,
-   g++), all three started together, each build timed; print the card's
-   name and power limit.
+   source, sm_90a), the native confirm twin (``csrc/libdetect.cc``, g++)
+   and phase 17's front door binaries (``native/``, g++ and gcc), all
+   started together, each build timed; print the card's name and power
+   limit.
 2. Pair kernel against plain, both configurations: the CUDA kernel
    (``ByteScanner`` raw-byte, ``PairScanner`` class-id) and the plain
    ``ops/scan.py::scan_pairs`` on the same CUDA tensors -- B=1024 seeded
@@ -255,7 +256,46 @@ Phases (any failure ends the run with a non-zero exit code):
     state; sync 3 ``noop`` with no POST.  The server's pair (and step)
     launches re-run by shape, bit-identical and timed; every health
     counter 0.
-17. Read each kernel's compiled loop (SASS); print the kernels line, the
+17. The front door: the port's servers behind the repository's own C++
+    sidecar, loadgen and nginx module harness, built from ``native/``
+    with its Makefiles' flags into ``build/native`` (``ops/cuda_build.py
+    build_native``; never in ``native/``).  Every unix socket path comes
+    from ``utils/uds.py socket_path`` (it fits AF_UNIX whatever
+    ``TMPDIR`` is).  Four legs, each of which logs ``FAILED phase 17 leg
+    X`` and the last lines of every child's log before the run fails.
+    (A) One server (block, a 60 s hard deadline) behind the sidecar
+    (ewma, a 60 s deadline, a 64 MiB upstream buffer: no fail-open can
+    be timing's): phase 3's requests through it on ``serve/client.py``,
+    then phase 8's response-leak frame and 8 chunked streams of its
+    bodies; every verdict equal to phase 8's references; the sidecar's
+    fail-open, ``bad_frames`` and ``late_responses`` counters 0,
+    ``responses == requests_in``.  (B) BASELINE.json config #1:
+    ``export_corpus.export`` writes 10000 labeled frames in monitoring
+    mode; loadgen (4 connections x 8 in flight) replays them through a
+    sidecar (60 s) to a ``--mode monitoring`` server and straight at it,
+    in turns (sidecar, direct, direct, sidecar): each run ``fail_open ==
+    0``, ``blocked == 0`` and ``attacks`` equal to the card library
+    pipeline's (``mode="monitoring"``) on the decoded frames; rps, p50,
+    p90, p99, p999 of each and the sidecar hop's rps over direct,
+    measured.  (C) Two servers from the rendered ``serve-0`` and
+    ``serve-1`` commands (phase 16's changes) behind the rendered
+    ``detect-sidecar`` command (its deadline, 50 ms, kept; only the
+    binary, the socket paths, the status port and the upstream list, cut
+    to the two servers, changed and printed); loadgen replays B's first
+    4096 frames at 4 x 8 and 8 x 32: rps, p50, p99, the fail-open share,
+    the sidecar's counters and the servers' fail-open and degraded
+    verdicts printed; asserted only what holds at any host speed
+    (``front_invariants``: answers equal requests, ``bad_frames`` and
+    ``fail_open_upstream`` 0, every request answered or failed open and
+    every late verdict back, the reference's attacks between ``attacks
+    - degraded`` and ``attacks + fail_open``, ``blocked`` 0).  (D) A
+    server on ``tests/test_shim.py``'s three rules with its ACLs pushed:
+    ``shim_harness`` straight at it passes every check its source names
+    (``HARNESS-OK``), ``shim_selftest`` through a sidecar gives the six
+    cases the test wants.  Servers A, B, C's launches are re-run by shape
+    on the bundled tables, D's on its rules' tables, bit-identical and
+    timed; health counters 0 on A, B and D.
+18. Read each kernel's compiled loop (SASS); print the kernels line, the
    nvidia-smi line and the result line.
 
 Kernel times are device times: several launches captured in one CUDA
@@ -284,6 +324,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from types import SimpleNamespace
 
 import numpy as np
@@ -1447,11 +1488,10 @@ class ServeChild:
         """Start the child (``ready`` waits for it): several children
         start side by side.  ``sock`` and ``port``, when given, are
         reused (a restart); else a temporary socket and a free port."""
+        from ingress_plus_tpu_torch.utils.uds import socket_path
+
         self.tmp = tempfile.mkdtemp(prefix="ipt")
-        self.sock = self.sock or os.path.join(self.tmp, "serve.sock")
-        if len(self.sock) > 100:
-            raise SystemExit("serve: socket path too long for AF_UNIX: %s"
-                             % self.sock)
+        self.sock = self.sock or socket_path(self.tmp, "serve.sock")
         self.port = self.port or free_port()
         self.log_path = os.path.join(self.tmp, "serve.log")
         argv = self.argv or [
@@ -1559,10 +1599,11 @@ def request_wave(sock: str, requests, wants,
             "p99_ms": float(np.percentile(lat, 99)), "only": only}
 
 
-def check_serve_metrics(what: str, metrics: str) -> float:
-    """Fail unless every SERVE_ZERO series reads 0 and engine_us is above
+def check_serve_metrics(what: str, metrics: str,
+                        zero: tuple = SERVE_ZERO) -> float:
+    """Fail unless every ``zero`` series reads 0 and engine_us is above
     0; returns engine_us."""
-    nonzero = {n: v for n in SERVE_ZERO
+    nonzero = {n: v for n in zero
                for v in metric_values(metrics, n) if v[1] != 0}
     if nonzero:
         raise SystemExit("serve %s: counters that must read 0 do not: %s"
@@ -1732,16 +1773,6 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     the server's defaults; then the same requests against a
     ``--confirm-workers auto`` server, for the pooled confirm's effect
     under one interpreter lock."""
-    import dataclasses
-
-    from ingress_plus_tpu_torch.serve.client import drive
-    from ingress_plus_tpu_torch.serve.normalize import Response
-    from ingress_plus_tpu_torch.serve.protocol import (
-        MODE_STREAM,
-        encode_chunk,
-        encode_request,
-        encode_response_scan,
-    )
     from ingress_plus_tpu_torch.utils.stream_corpus import stream_cases
     from ingress_plus_tpu_torch.utils.trace import (
         stage_breakdown_from_metrics,
@@ -1762,33 +1793,8 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
                               [want[:SECOND_WAVE]])]
         # the phase 6 bodies: the response leak as one response-scan
         # frame (rerouted to the stream lane), the others chunked
-        sid = 100000
-        leak = [c for c in cases if isinstance(c.meta, Response)]
-        chunked = [c for c in cases if not isinstance(c.meta, Response)]
-        t2 = time.perf_counter()
-        got = drive(srv.sock, [(sid + i, [encode_response_scan(
-            dataclasses.replace(c.meta, body=c.body), sid + i)])
-            for i, c in enumerate(leak)], 1, 1, timeout=300)
-        stream_units = []
-        for j, c in enumerate(chunked):
-            rid = sid + len(leak) + j
-            frames = [encode_request(c.meta, rid, mode=2 | MODE_STREAM)]
-            for off in range(0, len(c.body), STREAM_CHUNK):
-                frames.append(encode_chunk(
-                    rid, c.body[off:off + STREAM_CHUNK],
-                    last=off + STREAM_CHUNK >= len(c.body)))
-            stream_units.append((rid, frames))
-        got.update(drive(srv.sock, stream_units, len(stream_units), 1,
-                         timeout=300))
-        stream_wall = time.perf_counter() - t2
-        ref = dict(zip((c.name for c in cases), stream_keys))
-        for k, c in enumerate(leak + chunked):
-            resp = got[sid + k][0]
-            if resp["fail_open"] or \
-                    wire_key(c.meta.request_id, resp) != ref[c.name]:
-                raise SystemExit("serve: stream %s differs from the cpu "
-                                 "reference: %s vs %s"
-                                 % (c.name, resp, ref[c.name]))
+        stream_wall = stream_wave("serve", srv.sock, cases, stream_keys,
+                                  STREAM_CHUNK, len(cases) - 1)["wall_s"]
         metrics = srv.metrics()
         shapes1 = kernel_shapes(srv)
         launches1 = kernel_launches(metrics)
@@ -4005,20 +4011,24 @@ def rendered_container(text: str, name: str) -> dict:
     return out
 
 
-def served_command(rendered: list, root: str, port: int) -> tuple:
-    """The rendered ``serve-0`` argv with this run's changes: this run's
-    Python for ``python``, the socket, spool and LKG paths under
-    ``root``, ``--http-port`` a free port, ``--rules-dir`` dropped (the
-    server serves the bundled pack).  Returns (argv, socket, changes)."""
+def served_command(rendered: list, root: str, port: int,
+                   name: str = "serve-0") -> tuple:
+    """A rendered serve container's argv (``name``) with this run's
+    changes: this run's Python for ``python``, the socket (through
+    ``utils/uds.py socket_path``), spool and LKG paths under ``root``,
+    ``--http-port`` a free port, ``--rules-dir`` dropped (the server
+    serves the bundled pack).  Returns (argv, socket, changes)."""
+    from ingress_plus_tpu_torch.utils.uds import socket_path
+
     argv = list(rendered)
     if argv[:1] != ["python"]:
         raise SystemExit("controller: the render runs %r, not python"
                          % argv[:1])
     argv[0] = sys.executable
     changes = ["python -> %s" % sys.executable]
-    paths = {"--socket": os.path.join(root, "serve-0.sock"),
-             "--spool-dir": os.path.join(root, "spool"),
-             "--lkg-dir": os.path.join(root, "lkg"),
+    paths = {"--socket": socket_path(root, name + ".sock"),
+             "--spool-dir": os.path.join(root, name, "spool"),
+             "--lkg-dir": os.path.join(root, name, "lkg"),
              "--http-port": str(port)}
     for flag, value in paths.items():
         k = argv.index(flag)
@@ -4237,6 +4247,631 @@ def _phase_controller(root, requests, smi, server_args):
     return res, shape_delta(shapes0, shapes1)
 
 
+# --------------------------------------------------------------- phase 17
+
+#: leg B: config #1's corpus (``utils/export_corpus.py export``), its
+#: frames in monitoring mode (wire mode 1: config #1 is
+#: wallarm-mode=monitoring, and a frame's mode can only weaken a
+#: server's), and loadgen's runs over it, in turns
+FRONT_CORPUS = 10_000
+FRONT_MODE = 1
+FRONT_RUNS = ("sidecar", "direct", "direct", "sidecar")
+FRONT_LOADGEN = (4, 8)
+#: legs A and B: a deadline (sidecar) and a hard deadline (server) no
+#: run reaches, and an upstream buffer above all the leg's bytes (9 MB
+#: of streams and requests), so no fail-open can be timing's
+FRONT_DEADLINE_MS = "60000"
+FRONT_UPSTREAM_BUF = str(64 << 20)
+#: leg A: chunked streams of phase 8's bodies (each of the six once,
+#: the first two again), beside the response-leak frame
+FRONT_STREAMS = 8
+#: leg C: the rendered front door at its own deadline, leg B's first
+#: frames at each (connections, in flight); the drain's limit
+FRONT_LOADS = ((4, 8), (8, 32))
+FRONT_C_REQUESTS = 4096
+FRONT_DRAIN_S = 180.0
+#: leg D: ``tests/test_shim.py``'s three rules and ACLs
+SHIM_RULES = r"""
+SecRule REQUEST_URI|ARGS|REQUEST_BODY "@rx (?i)union\s+select" \
+    "id:942100,phase:2,block,t:urlDecodeUni,severity:CRITICAL,tag:'attack-sqli'"
+SecRule REQUEST_URI|ARGS|REQUEST_BODY "@rx (?i)<script" \
+    "id:941100,phase:2,block,t:urlDecodeUni,severity:CRITICAL,tag:'attack-xss'"
+SecRule RESPONSE_BODY "@rx (?i)root:[^\s]{0,24}:0:0:" \
+    "id:950100,phase:4,block,severity:CRITICAL,tag:'attack-disclosure'"
+"""
+SHIM_ACL = {"acls": {"edge": {"greylist": ["203.0.113.0/24"],
+                              "deny": ["10.66.66.0/24"]}},
+            "default": "edge"}
+#: the selftest's cases and the verdict ``tests/test_shim.py`` wants of
+#: each: (attack, blocked, fail_open), None where it does not say
+SELFTEST_WANT = {"attack": (True, True, False), "benign": (False, False, None),
+                 "stream": (True, True, None),
+                 "ws_attack": (True, True, False), "ws_sticky": (True, None, None),
+                 "dead_socket": (None, False, True)}
+#: the sidecar's fail-open counters (its status page)
+SIDECAR_FAIL_OPEN = ("fail_open_deadline", "fail_open_upstream",
+                     "fail_open_overload")
+TAIL_LINES = 40
+
+
+class NativeChild:
+    """A front-door binary (``build_native``'s sidecar) as a child
+    process logging to a file; ready once its socket accepts a
+    connection; stopped (terminate, then kill) on exit."""
+
+    def __init__(self, name: str, argv: list, sock: str, status_port: int):
+        self.name, self.argv, self.sock = name, list(argv), sock
+        self.status_port = status_port
+
+    def __enter__(self):
+        self.tmp = tempfile.mkdtemp(prefix="ipt")
+        self.log_path = os.path.join(self.tmp, "out.log")
+        with open(self.log_path, "w") as logf:
+            self.child = subprocess.Popen(self.argv, stdout=logf,
+                                          stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                if self.child.poll() is not None:
+                    raise SystemExit("%s exited with %d:\n%s"
+                                     % (self.name, self.child.returncode,
+                                        self.log()[-4000:]))
+                try:
+                    with socket.socket(socket.AF_UNIX) as s:
+                        s.connect(self.sock)
+                    break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > 60:
+                    raise SystemExit("%s: no socket at %s after 60 s"
+                                     % (self.name, self.sock))
+                time.sleep(0.05)
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def log(self) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def status(self) -> dict:
+        """The sidecar's counters (its ``--status-port`` page)."""
+        code, body = http_get(self.status_port, "/")
+        if code != 200:
+            raise SystemExit("%s: status page answered %d" % (self.name, code))
+        return json.loads(body)
+
+    def __exit__(self, *exc):
+        if self.child.poll() is None:
+            self.child.terminate()
+            try:
+                self.child.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.child.kill()
+                self.child.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def sidecar_argv(binary, listen: str, upstream: str,
+                 status_port: int) -> list:
+    """Legs A, B, D's sidecar: ewma balancing, a deadline and an upstream
+    buffer no run reaches."""
+    return [str(binary), "--listen", listen, "--upstream", upstream,
+            "--balance", "ewma", "--deadline-ms", FRONT_DEADLINE_MS,
+            "--max-upstream-buf", FRONT_UPSTREAM_BUF,
+            "--status-port", str(status_port)]
+
+
+def status_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after
+            if isinstance(after[k], int) and not isinstance(after[k], bool)}
+
+
+def run_loadgen(binary, sock: str, corpus: str, n: int, connections: int,
+                inflight: int, tails: dict) -> dict:
+    """One loadgen run; its output is kept in ``tails`` for the failure
+    report; a non-zero exit fails the run."""
+    cmd = [str(binary), "--socket", sock, "--corpus", corpus,
+           "--connections", str(connections), "--inflight", str(inflight),
+           "--requests", str(n)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    tails["loadgen"] = lambda: "%s\n%s%s" % (" ".join(cmd), out.stdout,
+                                             out.stderr)
+    if out.returncode != 0:
+        raise SystemExit("loadgen exited with %d: %s"
+                         % (out.returncode, out.stderr[-2000:]))
+    r = json.loads(out.stdout)
+    r.update(connections=connections, inflight=inflight,
+             p50_ms=r["p50_us"] / 1e3, p99_ms=r["p99_us"] / 1e3)
+    return r
+
+
+def front_invariants(run: dict, side: dict, reference: int,
+                     degraded: int) -> list:
+    """What holds of leg C's run at any host speed, however many
+    requests the rendered 50 ms deadline fails open: ``run`` is loadgen's
+    result, ``side`` the sidecar's counters moved over the run (drained:
+    every late verdict arrived), ``reference`` the card library
+    pipeline's attack count on the same frames, ``degraded`` the
+    servers' degraded verdicts over the run.  A prefilter-only verdict
+    (the brownout ladder's rung 1) can flag a request the confirm stage
+    clears, never the reverse, so ``degraded`` bounds the attacks above
+    the reference; a fail-open verdict can hide an attack.  Returns the
+    broken invariants, each with its numbers (empty: all hold)."""
+    bad = []
+
+    def need(ok, what):
+        if not ok:
+            bad.append(what)
+
+    sent = side["requests_in"]
+    need(run["requests"] == sent,
+         "loadgen's answers %d != the sidecar's requests %d"
+         % (run["requests"], sent))
+    need(side["bad_frames"] == 0, "bad_frames %d" % side["bad_frames"])
+    need(side["fail_open_upstream"] == 0,
+         "fail_open_upstream %d" % side["fail_open_upstream"])
+    failed = sum(side[k] for k in SIDECAR_FAIL_OPEN)
+    need(side["responses"] + failed == sent,
+         "responses %d + fail-open %d != requests_in %d"
+         % (side["responses"], failed, sent))
+    need(side["late_responses"] == side["fail_open_deadline"],
+         "late_responses %d != fail_open_deadline %d (not drained)"
+         % (side["late_responses"], side["fail_open_deadline"]))
+    need(run["fail_open"] >= failed,
+         "loadgen's fail-open %d < the sidecar's %d" % (run["fail_open"],
+                                                         failed))
+    need(run["attacks"] <= reference + degraded,
+         "attacks %d > reference %d + degraded %d"
+         % (run["attacks"], reference, degraded))
+    need(run["attacks"] + run["fail_open"] >= reference,
+         "attacks %d + fail_open %d < reference %d"
+         % (run["attacks"], run["fail_open"], reference))
+    need(run["blocked"] == 0, "blocked %d" % run["blocked"])
+    return bad
+
+
+@contextmanager
+def front_leg(leg: str, tails: dict):
+    """Leg ``leg`` of phase 17: a failure logs ``FAILED phase 17 leg X``
+    with its check and the last lines of every child's log, then goes
+    on up."""
+    try:
+        yield
+    except BaseException as e:
+        log("FAILED phase 17 leg %s: %s" % (leg, e))
+        for name, text in tails.items():
+            try:
+                lines = text().splitlines()[-TAIL_LINES:]
+            except OSError as err:
+                lines = ["(log unreadable: %s)" % err]
+            log("phase 17 leg %s: last %d lines of %s:\n%s"
+                % (leg, len(lines), name, "\n".join(lines)))
+        raise
+
+
+def stream_wave(what: str, sock: str, cases, stream_keys, chunk: int,
+                streams: int) -> dict:
+    """Phase 8's bodies over the wire: each response-leak case as one
+    response-scan frame, then ``streams`` chunked streams of the other
+    cases, taken in turn (a streaming request frame and its chunks of
+    ``chunk`` bytes), all at once; every verdict must equal its case's
+    CPU key in ``stream_keys`` and none may fail open."""
+    import dataclasses
+
+    from ingress_plus_tpu_torch.serve.client import drive
+    from ingress_plus_tpu_torch.serve.normalize import Response
+    from ingress_plus_tpu_torch.serve.protocol import (
+        MODE_STREAM,
+        encode_chunk,
+        encode_request,
+        encode_response_scan,
+    )
+
+    leak = [c for c in cases if isinstance(c.meta, Response)]
+    chunked = [c for c in cases if not isinstance(c.meta, Response)]
+    units = []
+    for c in leak:
+        rid = 100000 + len(units)
+        units.append((rid, [encode_response_scan(
+            dataclasses.replace(c.meta, body=c.body), rid)], c))
+    for k in range(streams):
+        c = chunked[k % len(chunked)]
+        rid = 100000 + len(units)
+        frames = [encode_request(c.meta, rid, mode=2 | MODE_STREAM)]
+        for off in range(0, len(c.body), chunk):
+            frames.append(encode_chunk(rid, c.body[off:off + chunk],
+                                       last=off + chunk >= len(c.body)))
+        units.append((rid, frames, c))
+    t = time.perf_counter()
+    got = drive(sock, [u[:2] for u in units[:len(leak)]], 1, 1, timeout=300)
+    got.update(drive(sock, [u[:2] for u in units[len(leak):]], streams, 1,
+                     timeout=300))
+    wall = time.perf_counter() - t
+    ref = dict(zip((c.name for c in cases), stream_keys))
+    for rid, _, c in units:
+        resp = got[rid][0]
+        if resp["fail_open"] or \
+                wire_key(c.meta.request_id, resp) != ref[c.name]:
+            raise SystemExit("%s: stream %s (req %d) differs from the cpu "
+                             "reference: %s vs %s"
+                             % (what, c.name, rid, resp, ref[c.name]))
+    return {"streams": streams, "response_scans": len(leak), "wall_s": wall}
+
+
+def corpus_requests(path: str) -> list:
+    """The requests of an exported corpus file, decoded as a server
+    decodes them."""
+    from ingress_plus_tpu_torch.serve.protocol import (
+        REQ_MAGIC,
+        FrameReader,
+        decode_request,
+    )
+
+    with open(path, "rb") as f:
+        frames = FrameReader(REQ_MAGIC).feed(f.read())
+    return [decode_request(p)[2] for p in frames]
+
+
+def counter(srv, name: str) -> float:
+    return sum(v for _, v in metric_values(srv.metrics(), name))
+
+
+def harness_checks() -> list:
+    """Every scenario ``native/shim/shim_harness.c`` checks, by name."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                       "shim", "shim_harness.c")
+    with open(src) as f:
+        return re.findall(r'CHECK\("([^"]+)"', f.read())
+
+
+def phase_front_door(requests, want, cases, stream_keys, chunk: int,
+                     smi: str, dev: torch.device, server_args=(),
+                     corpus_n: int = FRONT_CORPUS,
+                     c_requests: int = FRONT_C_REQUESTS) -> tuple:
+    """Phase 17: the port's servers behind the repository's own front
+    door (see the module docstring).  ``requests`` and ``want`` are
+    phase 3's, ``cases`` and ``stream_keys`` phase 8's bodies and their
+    CPU verdicts (streamed in ``chunk``-byte frames); ``server_args`` are
+    added to every server's command (none on the card); ``dev`` runs
+    leg B's reference pipeline.  Returns the result, the launches of
+    the servers on the bundled pack by kernel and shape, and leg D's
+    server's (its compiled three rules, its launches by shape)."""
+    root = tempfile.mkdtemp(prefix="ipt17")
+    try:
+        return _phase_front_door(root, requests, want, cases, stream_keys,
+                                 chunk, smi, dev, tuple(server_args),
+                                 corpus_n, c_requests)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_front_door(root, requests, want, cases, stream_keys, chunk, smi,
+                      dev, server_args, corpus_n, c_requests):
+    from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.seclang import load_seclang_dir
+    from ingress_plus_tpu_torch.control.deploy import write_static
+    from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
+    from ingress_plus_tpu_torch.ops.cuda_build import build_native
+    from ingress_plus_tpu_torch.utils.export_corpus import export
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    t_phase = time.perf_counter()
+    res = {"card": smi}
+    t = time.perf_counter()
+    bins = build_native()
+    res["build_s"] = time.perf_counter() - t
+    log("front door: built %s from native/ in %.1f s"
+        % (", ".join(sorted(bins)), res["build_s"]))
+    # the rendered pod: two serve containers and the sidecar
+    write_static(os.path.join(root, "static"))
+    with open(os.path.join(root, "static", "deployment.yaml")) as f:
+        text = f.read()
+    rendered = {n: rendered_container(text, n)
+                for n in ("serve-0", "serve-1", "detect-sidecar")}
+    held = ("--hard-deadline-ms", FRONT_DEADLINE_MS)
+    rules = os.path.join(root, "shim-rules")
+    os.makedirs(rules)
+    with open(os.path.join(rules, "tiny.conf"), "w") as f:
+        f.write(SHIM_RULES)
+    shim_cr = compile_ruleset(load_seclang_dir(rules))
+    servers = {"A": ServeChild(*server_args, *held),
+               "B": ServeChild(*server_args, "--mode", "monitoring", *held),
+               "D": ServeChild(*server_args, "--rules-dir", rules, *held)}
+    c_changes = {}
+    for k, name in enumerate(("serve-0", "serve-1")):
+        port = free_port()
+        argv, sock, changes = served_command(
+            rendered[name]["command"], root, port, name)
+        argv += list(server_args)
+        c_changes[name] = changes + ["%s added" % a for a in server_args]
+        servers["C%d" % k] = ServeChild(
+            argv=argv, env=dict(os.environ, **rendered[name]["env"]),
+            sock=sock, port=port)
+    # a server started without warmup (a CPU rehearsal) loads each shape
+    # at its first batch
+    zero = tuple(n for n in SERVE_ZERO if "--no-warmup" not in server_args
+                 or n != "ipt_engine_recompiles_total")
+
+    def healthy(k):
+        """Server ``k``'s health counters at 0 after its leg (not C's
+        servers: their rendered deadline fails requests open)."""
+        check_serve_metrics("front door (phase 17) server %s" % k,
+                            servers[k].metrics(), zero)
+
+    tails = {}
+    for k, srv in servers.items():
+        srv.start()
+        tails["server " + k] = srv.log
+    try:
+        # host work while the servers start: the corpus, its decoded
+        # requests, the wire references
+        corpus = os.path.join(root, "config1.bin")
+        export(corpus, n=corpus_n, seed=SEED, mode=FRONT_MODE)
+        decoded = corpus_requests(corpus)
+        wants, rerouted = wire_wants(requests, want)
+        for srv in servers.values():
+            srv.ready()
+        res["startup_s"] = {k: srv.startup_s for k, srv in servers.items()}
+        shapes0 = {k: kernel_shapes(srv) for k, srv in servers.items()}
+        with front_leg("A", tails):
+            res["A"] = front_leg_a(servers["A"], bins, root, requests, wants,
+                                   rerouted, cases, stream_keys, chunk,
+                                   tails)
+            healthy("A")
+        with front_leg("B", tails):
+            t = time.perf_counter()
+            ref_pl = DetectionPipeline(load_pack(), mode="monitoring",
+                                       device=dev)
+            ref = run_pipeline(ref_pl, decoded)
+            if any(v.fail_open for v in ref):
+                raise SystemExit("the reference pipeline failed open")
+            flags = np.cumsum([bool(v.attack) for v in ref])
+            res["reference_s"] = time.perf_counter() - t
+            res["B"] = front_leg_b(servers["B"], bins, root, corpus,
+                                   int(flags[-1]), corpus_n, tails)
+            healthy("B")
+        with front_leg("C", tails):
+            res["C"] = front_leg_c(servers["C0"], servers["C1"], bins, root,
+                                   rendered["detect-sidecar"]["command"],
+                                   c_changes, corpus,
+                                   min(c_requests, corpus_n),
+                                   int(flags[min(c_requests, corpus_n) - 1]),
+                                   tails)
+        with front_leg("D", tails):
+            res["D"] = front_leg_d(servers["D"], bins, root, tails)
+            healthy("D")
+        shapes1 = {k: kernel_shapes(srv) for k, srv in servers.items()}
+    finally:
+        for srv in servers.values():
+            srv.__exit__(None, None, None)
+    deltas = {k: shape_delta(shapes0[k], shapes1[k]) for k in shapes0}
+    launches = {k: {n: sum(s["launches"] for s in d[n]) for n in d}
+                for k, d in deltas.items()}
+    res["launches"] = launches
+    # a CPU rehearsal launches no kernel; on the card every server's
+    # batches and leg A's streams must have gone through them
+    idle = [k for k in launches if launches[k]["pair_scan"] <= 0]
+    if launches["A"]["step_scan"] <= 0:
+        idle.append("A step_scan")
+    if dev.type == "cuda" and idle:
+        raise SystemExit("front door: kernels of the path never launched on "
+                         "%s: %s" % (idle, launches))
+    res["seconds"] = time.perf_counter() - t_phase
+    log("front door: phase 17 %.1f s; launches by server %s"
+        % (res["seconds"], launches))
+    return (res, merge_shapes(*(deltas[k] for k in ("A", "B", "C0", "C1"))),
+            (shim_cr, deltas["D"]))
+
+
+def front_leg_a(srv, bins, root, requests, wants, rerouted, cases,
+                stream_keys, chunk, tails) -> dict:
+    """Leg A: verdict identity through the sidecar."""
+    from ingress_plus_tpu_torch.utils.uds import socket_path
+
+    listen = socket_path(root, "a-side.sock")
+    port = free_port()
+    argv = sidecar_argv(bins["sidecar"], listen, srv.sock, port)
+    with NativeChild("sidecar A", argv, listen, port) as side:
+        tails["sidecar A"] = side.log
+        st0 = side.status()
+        wave = request_wave(listen, requests, [wants])
+        streamed = stream_wave("front door A", listen, cases, stream_keys,
+                               chunk, FRONT_STREAMS)
+        st = status_delta(st0, side.status())
+        status = side.status()
+    bad = [k for k in SIDECAR_FAIL_OPEN + ("bad_frames", "late_responses")
+           if st[k]]
+    want_in = len(requests) + FRONT_STREAMS + streamed["response_scans"]
+    if bad or st["responses"] != st["requests_in"] or \
+            st["requests_in"] != want_in:
+        raise SystemExit("sidecar A counters: %s moved; responses %d, "
+                         "requests_in %d, want %d"
+                         % (bad, st["responses"], st["requests_in"], want_in))
+    log("front door A: %d requests through the sidecar (ewma, %s ms "
+        "deadline) identical to the cpu reference (%d rerouted), %.1f req/s, "
+        "p50 %.2f ms p99 %.2f ms; %d chunked streams and %d response-scan "
+        "frame(s) identical in %.1f s; sidecar counters %s"
+        % (len(requests), FRONT_DEADLINE_MS, len(rerouted),
+           wave["wire_req_per_s"], wave["p50_ms"], wave["p99_ms"],
+           FRONT_STREAMS, streamed["response_scans"], streamed["wall_s"], st))
+    return {"argv": argv, "wave": wave, "identical_verdicts": len(requests),
+            "streams": FRONT_STREAMS,
+            "response_scans": streamed["response_scans"],
+            "stream_s": streamed["wall_s"], "sidecar": st,
+            "upstreams": status["upstreams"]}
+
+
+def front_leg_b(srv, bins, root, corpus, reference, n, tails) -> dict:
+    """Leg B: config #1, loadgen through the sidecar and straight at the
+    server, in turns."""
+    from ingress_plus_tpu_torch.utils.uds import socket_path
+
+    listen = socket_path(root, "b-side.sock")
+    port = free_port()
+    argv = sidecar_argv(bins["sidecar"], listen, srv.sock, port)
+    runs = []
+    with NativeChild("sidecar B", argv, listen, port) as side:
+        tails["sidecar B"] = side.log
+        st0 = side.status()
+        for via in FRONT_RUNS:
+            r = run_loadgen(bins["loadgen"],
+                            listen if via == "sidecar" else srv.sock, corpus,
+                            n, *FRONT_LOADGEN, tails)
+            r["via"] = via
+            runs.append(r)
+            if (r["requests"], r["fail_open"], r["blocked"],
+                    r["attacks"]) != (n, 0, 0, reference):
+                raise SystemExit(
+                    "config #1 %s run %d: requests %d fail_open %d blocked %d "
+                    "attacks %d, want %d, 0, 0, %d (the card library "
+                    "pipeline's)" % (via, len(runs), r["requests"],
+                                     r["fail_open"], r["blocked"],
+                                     r["attacks"], n, reference))
+        st = status_delta(st0, side.status())
+    if any(st[k] for k in SIDECAR_FAIL_OPEN + ("bad_frames",)) or \
+            st["responses"] != st["requests_in"]:
+        raise SystemExit("sidecar B counters: %s" % st)
+
+    def mean(via):
+        return statistics.mean(r["rps"] for r in runs if r["via"] == via)
+
+    ratio = mean("sidecar") / mean("direct")
+    for r in runs:
+        log("front door B: config #1 %s, %d x %d: %d requests, %.1f req/s, "
+            "p50 %.2f p90 %.2f p99 %.2f p999 %.2f ms; attacks %d = the "
+            "library pipeline's, blocked 0, fail-open 0"
+            % (r["via"], r["connections"], r["inflight"], r["requests"],
+               r["rps"], r["p50_us"] / 1e3, r["p90_us"] / 1e3,
+               r["p99_us"] / 1e3, r["p999_us"] / 1e3, r["attacks"]))
+    log("front door B: the sidecar hop's req/s over direct: %.3f" % ratio)
+    return {"argv": argv, "requests": n, "reference_attacks": reference,
+            "runs": runs, "hop_req_per_s_ratio": ratio, "sidecar": st}
+
+
+def front_leg_c(s0, s1, bins, root, rendered, changes, corpus, n,
+                reference, tails) -> dict:
+    """Leg C: the rendered front door at its own deadline; measured,
+    gated only on ``front_invariants``."""
+    from ingress_plus_tpu_torch.utils.uds import socket_path
+
+    argv = list(rendered)
+    side_changes = ["%s -> %s" % (argv[0], bins["sidecar"])]
+    argv[0] = str(bins["sidecar"])
+    listen = socket_path(root, "detect.sock")
+    port = free_port()
+    for flag, value in (("--listen", listen),
+                        ("--upstream", "%s,%s" % (s0.sock, s1.sock)),
+                        ("--status-port", str(port))):
+        k = argv.index(flag)
+        side_changes.append("%s %s -> %s" % (flag, argv[k + 1], value))
+        argv[k + 1] = value
+    deadline = argv[argv.index("--deadline-ms") + 1]
+    log("front door C: rendered detect-sidecar %s; run with these changes: "
+        "%s; serve-0 and serve-1 with theirs: %s"
+        % (" ".join(rendered), "; ".join(side_changes), changes))
+    loads = []
+    with NativeChild("sidecar C", argv, listen, port) as side:
+        tails["sidecar C"] = side.log
+        for conns, inflight in FRONT_LOADS:
+            st0 = side.status()
+            srv0 = [(counter(s, "ipt_fail_open_total"),
+                     counter(s, "ipt_degraded_verdicts_total"))
+                    for s in (s0, s1)]
+            r = run_loadgen(bins["loadgen"], listen, corpus, n, conns,
+                            inflight, tails)
+            t = time.perf_counter()
+            while True:     # drained: every late verdict has come back
+                st = status_delta(st0, side.status())
+                if st["late_responses"] >= st["fail_open_deadline"] or \
+                        time.perf_counter() - t > FRONT_DRAIN_S:
+                    break
+                time.sleep(0.1)
+            drain_s = time.perf_counter() - t
+            srv1 = [(counter(s, "ipt_fail_open_total"),
+                     counter(s, "ipt_degraded_verdicts_total"))
+                    for s in (s0, s1)]
+            server_fail_open = sum(b[0] - a[0] for a, b in zip(srv0, srv1))
+            degraded = sum(b[1] - a[1] for a, b in zip(srv0, srv1))
+            row = {**r, "reference_attacks": reference,
+                   "fail_open_share": r["fail_open"] / r["requests"],
+                   "sidecar": st, "server_fail_open": server_fail_open,
+                   "server_degraded": degraded, "drain_s": drain_s,
+                   "forwarded": [u["forwarded"]
+                                 for u in side.status()["upstreams"]]}
+            loads.append(row)
+            log("front door C: %d x %d at the rendered %s ms deadline: %d "
+                "requests, %.1f req/s, p50 %.2f ms p99 %.2f ms, fail-open "
+                "%d (%.1f%%), attacks %d of the reference %d, blocked %d; "
+                "sidecar %s; the servers' fail-open %d, degraded %d; drained "
+                "in %.2f s" % (conns, inflight, deadline, r["requests"],
+                               r["rps"], r["p50_ms"], r["p99_ms"],
+                               r["fail_open"], 100 * row["fail_open_share"],
+                               r["attacks"], reference, r["blocked"], st,
+                               server_fail_open, degraded, drain_s))
+            bad = front_invariants(r, st, reference, int(degraded))
+            if bad:
+                raise SystemExit("%d x %d: %s" % (conns, inflight,
+                                                  "; ".join(bad)))
+    return {"rendered": rendered, "changes": side_changes,
+            "serve_changes": changes, "deadline_ms": float(deadline),
+            "requests": n, "loads": loads}
+
+
+def front_leg_d(srv, bins, root, tails) -> dict:
+    """Leg D: the nginx module's harness straight at a server on three
+    rules, and the module's client through a sidecar."""
+    from ingress_plus_tpu_torch.utils.uds import socket_path
+
+    status, acl = http_json(srv.port, "POST", "/configuration/acl", SHIM_ACL)
+    if status != 200 or acl.get("acls") != ["edge"]:
+        raise SystemExit("shim: ACL push answered %d %s" % (status, acl))
+    out = subprocess.run([str(bins["shim_harness"]), srv.sock],
+                         capture_output=True, text=True, timeout=300)
+    tails["shim_harness"] = lambda: out.stdout + out.stderr
+    lines = [ln for ln in out.stdout.splitlines() if ln]
+    ok = [ln[3:] for ln in lines if ln.startswith("ok ")]
+    checks = harness_checks()
+    failed = [ln for ln in lines if ln.startswith("FAIL")]
+    if out.returncode != 0 or lines[-1:] != ["HARNESS-OK"] or failed or \
+            sorted(ok) != sorted(checks):
+        raise SystemExit("shim_harness: rc %d, last %s, failed %s, ok %d of "
+                         "%d checks (missing %s)"
+                         % (out.returncode, lines[-1:], failed, len(ok),
+                            len(checks), sorted(set(checks) - set(ok))))
+    ws = [c for c in ok if c.startswith("ws_")]
+    listen = socket_path(root, "d-side.sock")
+    port = free_port()
+    argv = sidecar_argv(bins["sidecar"], listen, srv.sock, port)
+    with NativeChild("sidecar D", argv, listen, port) as side:
+        tails["sidecar D"] = side.log
+        dead = socket_path(root, "dead.sock")
+        sel = subprocess.run([str(bins["shim_selftest"]), listen, dead],
+                             capture_output=True, text=True, timeout=300)
+        tails["shim_selftest"] = lambda: sel.stdout + sel.stderr
+        st = side.status()
+    cases = {json.loads(ln)["case"]: json.loads(ln)
+             for ln in sel.stdout.splitlines() if ln}
+    wrong = {}
+    for case, wants in SELFTEST_WANT.items():
+        got = cases.get(case, {})
+        for key, w in zip(("attack", "blocked", "fail_open"), wants):
+            if w is not None and got.get(key) != w:
+                wrong[case] = got
+    if sel.returncode != 0 or wrong or sorted(cases) != sorted(SELFTEST_WANT) \
+            or cases["attack"]["n_rules"] < 1:
+        raise SystemExit("shim_selftest: rc %d, cases %s, wrong %s"
+                         % (sel.returncode, sorted(cases), wrong))
+    if st["bad_frames"] or any(st[k] for k in SIDECAR_FAIL_OPEN):
+        raise SystemExit("sidecar D counters: %s" % st)
+    log("front door D: shim_harness %d of %d checks ok (%d websocket), "
+        "HARNESS-OK; shim_selftest %s as tests/test_shim.py wants"
+        % (len(ok), len(checks), len(ws), sorted(cases)))
+    return {"harness_ok": len(ok), "harness_checks": len(checks),
+            "ws_scenarios": ws, "selftest": cases, "sidecar": st}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
@@ -4263,8 +4898,9 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     """Every phase (the module docstring); ``stream_child`` is phase 6's
     CPU reference, already running."""
     from ingress_plus_tpu_torch.models import libdetect
+    from ingress_plus_tpu_torch.ops.cuda_build import build_native
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
-    from ingress_plus_tpu_torch.ops.scan import scan_pairs
+    from ingress_plus_tpu_torch.ops.scan import ScanTables, scan_pairs
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
     from ingress_plus_tpu_torch.weights import load_pack
 
@@ -4278,13 +4914,22 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         t = time.perf_counter()
         return lib.build(verbose=True), time.perf_counter() - t
 
-    # one compiler per source (nvcc for the kernels, g++ for the twin)
-    with ThreadPoolExecutor(len(sources)) as pool:
+    def build_front():
+        t = time.perf_counter()
+        return build_native(), time.perf_counter() - t
+
+    # one compiler per source (nvcc for the kernels, g++ for the twin),
+    # beside the front door's binaries (phase 17)
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        front_built = pool.submit(build_front)
         built = list(pool.map(build, sources))
+        native, native_s = front_built.result()
     dev = torch.device("cuda")
     for src, (lib, secs) in zip(sources, built):
         src.load(dev)
         log("built %s with %s in %.1fs" % (lib.name, src.compiler, secs))
+    log("built the front door's %s from native/ in %.1fs"
+        % (", ".join(sorted(native)), native_s))
     libs = [path for path, _ in built]
     log("build %.1fs" % (time.perf_counter() - t0))
     smi = nvidia_smi_line()
@@ -4351,6 +4996,15 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     log("controller " + json.dumps(controller))
     controller_k = phase_serve_kernels(kern["tables"], controller_shapes,
                                        pool, dev, "controller")
+    front, front_shapes, (shim_cr, shim_shapes) = phase_front_door(
+        requests, want, stream_cases(STREAM_BODY, STREAM_CHUNK, SEED),
+        stream["cpu_keys"], STREAM_CHUNK, smi, dev)
+    log("front door " + json.dumps(front))
+    front_k = phase_serve_kernels(kern["tables"], front_shapes, pool, dev,
+                                  "front door")
+    shim_k = phase_serve_kernels(
+        ScanTables.from_bitap(shim_cr.tables, dev),
+        shim_shapes, pool, dev, "shim")
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -4364,7 +5018,8 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         "native_tooling": tooling, "mesh": mesh, "fleet": fleet,
         "quality": quality, "quality_kernels": quality_k,
         "controller": controller, "controller_kernels": controller_k,
-        "sass": sass,
+        "front_door": front, "front_door_kernels": front_k,
+        "shim_kernels": shim_k, "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -4535,9 +5190,31 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                               controller_k[name]["shapes"].values()))
         for name in ("pair_scan", "step_scan")
         if controller_k[name]["total"]["launches"]]
+    front_entries = [entry(
+        name, "%s: %s (phase 17)" % (name, what), front_k[name]["total"],
+        max(front_k[name]["total"]["max_abs_err"],
+            shim_k[name]["total"]["max_abs_err"]),
+        parity="bit-identical match and state at each of the phase 17 "
+               "servers' %d (B, L, carried) shapes on the bundled tables, "
+               "and at the nginx harness server's %d shapes on its three "
+               "rules' tables (%d launches)"
+               % (len(front_k[name]["shapes"]), len(shim_k[name]["shapes"]),
+                  shim_k[name]["total"]["launches"]),
+        shape="the %d launches of the servers behind the sidecar and "
+              "loadgen (legs A, B, C: phase 3's requests and 8 chunked "
+              "streams, config #1's %d frames four times, the rendered "
+              "front door at two loads), each shape's device time once per "
+              "launch of it; bound from the work the servers counted"
+              % (front_k[name]["total"]["launches"], front["B"]["requests"]),
+        x_bound=(front_k[name]["total"]["ms"]
+                 / front_k[name]["total"]["bound_ms"]),
+        segments=segment_rows("front door path",
+                              front_k[name]["shapes"].values()))
+        for name, what in (("pair_scan", "front door, config #1"),
+                           ("step_scan", "front door"))]
     print(json.dumps({"kernels": serve_entries + mesh_entries
                       + rollout_entries + post_entries + quality_entries
-                      + controller_entries
+                      + controller_entries + front_entries
                       + [entry(
         "pair_scan", "library: pallas3 batch path (phase 3)", tot,
         max(s[c]["max_abs_err"] for s in kern["shapes"]

@@ -685,7 +685,9 @@ def build_drill_fleet(n_nodes: int, lkg_dir,
                       observer: bool = False, device=None, **batcher_kw):
     """N in-process drill nodes (incumbent pack) on ``device`` (None =
     the CUDA card, "cpu" for the plain scan) + a front over them + a
-    FleetController wired with the drill traffic pump.  Returns
+    FleetController wired with the drill traffic pump.  Socket paths are
+    ``<socket_prefix>-<pid>-<node>.sock``, moved under ``/tmp`` where
+    that would not fit AF_UNIX (``utils/uds.py socket_path``).  Returns
     (harnesses, front, fleet, obs) — caller owns teardown."""
     from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
     from ingress_plus_tpu_torch.compiler.seclang import parse_seclang
@@ -693,11 +695,17 @@ def build_drill_fleet(n_nodes: int, lkg_dir,
         _DRILL_INCUMBENT, _drill_config, _drill_traffic)
     from ingress_plus_tpu_torch.serve.front import BackendNode, FrontLoop
     from ingress_plus_tpu_torch.utils.faults import _mk_batcher
+    from ingress_plus_tpu_torch.utils.uds import socket_path
 
     import tempfile
 
     if socket_prefix is None:
         socket_prefix = os.path.join(tempfile.gettempdir(), "ipt-fdrill")
+
+    def sock(node) -> str:
+        return socket_path(os.path.dirname(socket_prefix), "%s-%d-%s.sock" % (
+            os.path.basename(socket_prefix), os.getpid(), node))
+
     cr_inc = compile_ruleset(parse_seclang(_DRILL_INCUMBENT))
     harnesses = []
     fleet_nodes = []
@@ -705,8 +713,7 @@ def build_drill_fleet(n_nodes: int, lkg_dir,
         b = _mk_batcher(cr=cr_inc, device=device, **batcher_kw)
         ro = RolloutController(b, _drill_config())
         b.rollout = ro
-        h = NodeHarness("n%d" % i, b,
-                        "%s-%d-%d.sock" % (socket_prefix, os.getpid(), i))
+        h = NodeHarness("n%d" % i, b, sock(i))
         h.start()
         harnesses.append(h)
         fleet_nodes.append(FleetNode(h.name, b, ro))
@@ -728,9 +735,7 @@ def build_drill_fleet(n_nodes: int, lkg_dir,
         probe=(lambda h=h: h.alive and
                h.serve.http_get("/readyz")[0].startswith("200")))
         for h in harnesses]
-    front = FrontLoop(backends,
-                      "%s-%d-front.sock" % (socket_prefix, os.getpid()),
-                      probe_interval_s=0.2)
+    front = FrontLoop(backends, sock("front"), probe_interval_s=0.2)
     front.start_background()
 
     wave = [0]

@@ -8,8 +8,11 @@ CUDA kernels (``*.cu``, with the ``csrc/*.cuh`` headers) go through
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC``; the host code of the native confirm twin
 (``csrc/libdetect.cc``) goes through ``g++`` with the flags of
-``native/confirm/Makefile`` (:data:`GXX_FLAGS`).  Nothing is built when
-a module is imported.
+``native/confirm/Makefile`` (:data:`GXX_FLAGS`).  The front door's
+binaries (the C++ sidecar, loadgen and the nginx module's harnesses) are
+built from ``native/`` with its Makefiles' flags into
+``build/native/`` (:func:`build_native`).  Nothing is built when a module
+is imported.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterator, Optional, Sequence, Tuple
@@ -59,8 +63,7 @@ def find_compiler(name: str) -> str:
     path = shutil.which(name)
     if path is None:
         raise RuntimeError("%s not found: the port's native code is built "
-                           "from ingress_plus_tpu_torch/csrc at first use"
-                           % name)
+                           "from source at first use" % name)
     return path
 
 
@@ -100,6 +103,105 @@ def build_library(source: Path, verbose: bool = False,
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+#: the nginx side of the wire, built from the repository's ``native/``
+#: sources (never copied into the port, never built in place)
+NATIVE = PKG.parent / "native"
+NATIVE_BUILD = BUILD_DIR / "native"
+#: ``native/sidecar/Makefile`` and ``native/shim/Makefile``: CXXFLAGS
+#: and the module objects' C flags
+NATIVE_CXXFLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra")
+NATIVE_CFLAGS = ("-O2", "-std=c11", "-Wall", "-Wextra", "-Werror",
+                 "-Inginx_compat")
+#: each Makefile target: (directory under native/, compiler, flags,
+#: inputs in that directory or earlier targets, extra trailing args);
+#: ``-c`` targets are objects, in the order they must be built
+NATIVE_TARGETS = {
+    "sidecar": ("sidecar", "g++", NATIVE_CXXFLAGS, ("sidecar.cc",), ()),
+    "loadgen": ("sidecar", "g++", NATIVE_CXXFLAGS, ("loadgen.cc",), ()),
+    "shim_selftest": ("shim", "g++", NATIVE_CXXFLAGS,
+                      ("shim_selftest.cc", "shim_bridge.cc"), ()),
+    "ngx_http_detect_tpu_module.o": (
+        "shim", "gcc", NATIVE_CFLAGS + ("-c",),
+        ("ngx_http_detect_tpu_module.c",), ()),
+    "ngx_test_double.o": ("shim", "gcc", NATIVE_CFLAGS + ("-I.", "-c"),
+                          ("ngx_test_double.c",), ()),
+    "shim_harness.o": ("shim", "gcc", NATIVE_CFLAGS + ("-I.", "-c"),
+                       ("shim_harness.c",), ()),
+    "shim_harness": ("shim", "g++", NATIVE_CXXFLAGS,
+                     ("shim_harness.o", "ngx_test_double.o",
+                      "ngx_http_detect_tpu_module.o", "shim_bridge.cc"),
+                     ("-lpthread",)),
+}
+#: what each binary needs built before it
+NATIVE_DEPS = {"shim_harness": ("ngx_http_detect_tpu_module.o",
+                                "ngx_test_double.o", "shim_harness.o")}
+NATIVE_BINARIES = ("sidecar", "loadgen", "shim_selftest", "shim_harness")
+
+
+def native_dir(root: Path = NATIVE) -> Path:
+    """Where :func:`build_native` puts the binaries of ``root``'s sources:
+    ``build/native/<key>``, the key hashing every source and header under
+    ``root/sidecar`` and ``root/shim``, the compilers and the flags.
+    Nothing is built."""
+    h = hashlib.sha256()
+    for sub in ("sidecar", "shim"):
+        for p in sorted((root / sub).rglob("*")):
+            if p.suffix in (".c", ".cc", ".h", ".hpp") and p.is_file():
+                h.update(str(p.relative_to(root)).encode() + b"\0"
+                         + p.read_bytes())
+    for name, (_, cc, flags, _, extra) in sorted(NATIVE_TARGETS.items()):
+        h.update(" ".join((name, shutil.which(cc) or cc, *flags,
+                           *extra)).encode())
+    return NATIVE_BUILD / h.hexdigest()[:16]
+
+
+def build_native(targets: Sequence[str] = NATIVE_BINARIES,
+                 root: Path = NATIVE, force: bool = False) -> Dict[str, Path]:
+    """Build the front door's binaries (``sidecar``, ``loadgen``,
+    ``shim_selftest``, ``shim_harness``; objects by name too) from
+    ``root``'s sources with the Makefiles' compilers and flags, into
+    :func:`native_dir` (once per key; ``force`` rebuilds).  Each target is
+    compiled in a private temporary directory and moved into place with
+    ``os.replace``, so processes building at once all succeed and leave
+    whole files.  Nothing is written under ``root``.  A failed compile
+    raises RuntimeError with the compiler's output.  Returns {target:
+    path}."""
+    out_dir = native_dir(root)
+    want = {t: out_dir / t for t in targets}
+    todo = [t for t in targets if force or not want[t].exists()]
+    if not todo:
+        return want
+    out_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix=".build-", dir=out_dir))
+
+    def compile_one(t):
+        sub, cc, flags, inputs, extra = NATIVE_TARGETS[t]
+        args = [str(work / i) if i in NATIVE_TARGETS else i for i in inputs]
+        cmd = [find_compiler(cc), *flags, "-o", str(work / t), *args, *extra]
+        # the Makefiles' relative include paths resolve from the source
+        # directory; every output goes to ``work``
+        proc = subprocess.run(cmd, cwd=str(root / sub), capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("%s failed on %s (%s):\n%s%s"
+                               % (cc, t, " ".join(cmd), proc.stdout,
+                                  proc.stderr))
+
+    # one compiler per target, all at once; then the links that need them
+    first = {d for t in todo for d in NATIVE_DEPS.get(t, ())}
+    first |= {t for t in todo if t not in NATIVE_DEPS}
+    try:
+        for stage in (sorted(first), [t for t in todo if t in NATIVE_DEPS]):
+            if stage:
+                with ThreadPoolExecutor(len(stage)) as pool:
+                    list(pool.map(compile_one, stage))
+        for t in todo:
+            os.replace(work / t, want[t])   # atomic, as in build_library
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return want
 
 
 #: a C function's ctypes signature: (argtypes, restype)

@@ -792,9 +792,12 @@ def _rollout_fixtures(device=None, **kw):
     return b, ro, cr_inc, cr_cand
 
 
-def _drive_rollout(b, ro, terminal, violations, waves: int = 40):
-    """Push traffic until the rollout reaches a terminal state; every
-    future must resolve (the exactly-one-verdict leg rides here)."""
+def _drive_rollout(b, ro, terminal, violations):
+    """Push traffic until the rollout reaches a terminal state (or 60 s
+    pass); every future must resolve (the exactly-one-verdict leg rides
+    here).  No cap on the waves: on a card the shadow lane compares the
+    share of mirrored requests its host-clock budget allows, so how many
+    waves the shadow stage needs depends on the host."""
     deadline = time.monotonic() + 60
     wave = 0
     while ro.state not in terminal and time.monotonic() < deadline:
@@ -803,8 +806,6 @@ def _drive_rollout(b, ro, terminal, violations, waves: int = 40):
         _verdicts, viol = _collect(futs, timeout_s=30)
         violations.extend(viol)
         wave += 1
-        if wave > waves:
-            break
 
 
 def _check_incumbent_serving(b, cr_inc, violations, tag: str) -> None:
