@@ -295,8 +295,25 @@ Phases (any failure ends the run with a non-zero exit code):
     cases the test wants.  Servers A, B, C's launches are re-run by shape
     on the bundled tables, D's on its rules' tables, bit-identical and
     timed; health counters 0 on A, B and D.
-18. Read each kernel's compiled loop (SASS); print the kernels line, the
-   nvidia-smi line and the result line.
+18. The JAX package's own verdict test files on the card: the eight of
+    :data:`CARD_FILES` (ROADMAP's group 1 but ``test_skip_after``, which
+    builds no pipeline, and ``test_tenant_fairness``, which times its own
+    paths on the host clock), each rewritten onto the port by
+    ``tests/torch_ported_tests.py ported(name, {}, device="cuda")`` into
+    one tiny module of a temporary directory, all run by one ``python -m
+    pytest`` child.  Their pipelines take the card's ``auto`` (``pallas3``
+    batches; ``StepScanner`` for the stream lane and ``take``) on the
+    files' own small packs (their own word and class counts), under the
+    files' hand-written expectations.  Fails unless the child exits
+    0, no case fails or errors, every file passes as many cases as its
+    CPU leg (``tests/test_torch_<name>[_ref].py``, run whole) less the
+    :data:`CARD_EXCLUDE` cases, and every file made a pair or a step
+    kernel launch (``ScanKernel.launches``, the tally behind
+    ``/debug/kernels``, read in the child).  Prints, before the kernels
+    line, ``phase 18`` and per file the passed, excluded, pair and step
+    launches and seconds, beside the card's name and power limit.
+19. Read each kernel's compiled loop (SASS); print the phase 18 line, the
+    kernels line, the nvidia-smi line and the result line.
 
 Kernel times are device times: several launches captured in one CUDA
 graph, CUDA events around the replay, the median of the replays, per
@@ -406,6 +423,18 @@ SecRule REQUEST_URI "@beginsWith /graphql" \
     "id:960200,phase:1,block,severity:CRITICAL,tag:'attack-generic'"
 """
 
+
+#: phase 18: the JAX package's verdict test files run on the card
+CARD_FILES = ("test_exclusions", "test_acl_modes", "test_anomaly_mode",
+              "test_confirm_targets", "test_family_coverage",
+              "test_pipeline", "test_stream", "test_rule_stats")
+#: phase 18: file -> the tests left out on the card, each one that
+#: asserts a fact of the CPU only (``scan_impl="pair"``, which a card
+#: engine refuses; a count of CPU compiles).  None: every case of the
+#: eight files passes on an H100 as it stands
+CARD_EXCLUDE: dict = {}
+#: phase 18: the pytest child's limit
+CARD_FILES_LIMIT_S = 240
 
 #: the run's start, for the seconds every log line carries
 T0 = time.perf_counter()
@@ -4872,6 +4901,133 @@ def front_leg_d(srv, bins, root, tails) -> dict:
             "ws_scenarios": ws, "selftest": cases, "sidecar": st}
 
 
+#: phase 18's child: its rootdir conftest.  It leaves out the
+#: ``CARD_EXCLUDE`` cases, and writes per file the cases collected (the
+#: CPU leg's), left out, passed and failed, the pair and step kernel
+#: launches of its cases and fixtures, and their seconds
+_CARD_FILES_PLUGIN = """
+import json
+import time
+
+import pytest
+
+from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN
+from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
+
+EXCLUDE = %(exclude)r
+files = {}
+
+
+def _name(nodeid):
+    return nodeid.split("::")[0][len("card_"):-len(".py")]
+
+
+def _file(nodeid):
+    return files.setdefault(_name(nodeid), {
+        "collected": 0, "excluded": 0, "passed": 0, "failed": 0,
+        "pair": 0, "step": 0, "seconds": 0.0})
+
+
+def pytest_collection_modifyitems(config, items):
+    drop = []
+    for item in items:
+        f = _file(item.nodeid)
+        f["collected"] += 1
+        if item.originalname in EXCLUDE.get(_name(item.nodeid), ()):
+            f["excluded"] += 1
+            drop.append(item)
+    config.hook.pytest_deselected(items=drop)
+    items[:] = [i for i in items if i not in drop]
+
+
+@pytest.hookimpl(hookwrapper=True)
+def pytest_runtest_protocol(item, nextitem):
+    f = _file(item.nodeid)
+    pair, step, t = PAIR_SCAN.launches, STEP_SCAN.launches, time.perf_counter()
+    yield
+    f["pair"] += PAIR_SCAN.launches - pair
+    f["step"] += STEP_SCAN.launches - step
+    f["seconds"] += time.perf_counter() - t
+
+
+def pytest_runtest_logreport(report):
+    f = _file(report.nodeid)
+    if report.failed:
+        f["failed"] += 1
+    elif report.when == "call" and report.passed:
+        f["passed"] += 1
+
+
+def pytest_sessionfinish(session, exitstatus):
+    with open(%(out)r, "w") as fh:
+        json.dump(files, fh)
+"""
+
+
+def phase_card_files(smi: str, device: str = "cuda",
+                     files=CARD_FILES) -> dict:
+    """Phase 18 (the module docstring): ``files``, the JAX package's own
+    test files, through ``ported(..., device=device)`` in one pytest
+    child.  Raises SystemExit unless every file passed all its cases but
+    the card's exclusions and, on ``cuda``, launched a scan kernel."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ipt-card-files-") as d:
+        out = os.path.join(d, "files.json")
+        for name in files:
+            with open(os.path.join(d, "card_%s.py" % name), "w") as fh:
+                fh.write("from torch_ported_tests import ported\n\n"
+                         "globals().update(ported(%r, exclude={}, "
+                         "device=%r))\n" % (name, device))
+        with open(os.path.join(d, "conftest.py"), "w") as fh:
+            fh.write(_CARD_FILES_PLUGIN % {
+                "exclude": {n: sorted(CARD_EXCLUDE.get(n, ()))
+                            for n in files}, "out": out})
+        with open(os.path.join(d, "pytest.ini"), "w") as fh:
+            fh.write("[pytest]\n")
+        path = [os.path.join(here, "tests"), here]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            path + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        try:
+            child = subprocess.run(
+                [sys.executable, "-m", "pytest", "-q", "-p",
+                 "no:cacheprovider", "-p", "no:randomly", "-c",
+                 os.path.join(d, "pytest.ini"), "--rootdir", d]
+                + [os.path.join(d, "card_%s.py" % n) for n in files],
+                cwd=d, env=env, capture_output=True, text=True,
+                timeout=CARD_FILES_LIMIT_S)
+        except subprocess.TimeoutExpired as e:
+            raise SystemExit("phase 18: the pytest child ran past %d s:\n%s"
+                             % (CARD_FILES_LIMIT_S, (e.stdout or "")[-4000:]))
+        tail = "\n".join((child.stdout + child.stderr).splitlines()[-60:])
+        if child.returncode != 0 or not os.path.exists(out):
+            raise SystemExit("phase 18: the pytest child exited %d:\n%s"
+                             % (child.returncode, tail))
+        with open(out) as fh:
+            got = json.load(fh)
+    bad = []
+    for name in files:
+        f = got.get(name)
+        if f is None:
+            bad.append("%s: no case ran" % name)
+            continue
+        if f["failed"] or f["passed"] != f["collected"] - f["excluded"]:
+            bad.append("%s: %d passed, %d failed of %d cases less %d left "
+                       "out" % (name, f["passed"], f["failed"],
+                                f["collected"], f["excluded"]))
+        if device == "cuda" and not (f["pair"] or f["step"]):
+            bad.append("%s: no pair or step kernel launch" % name)
+    if bad:
+        raise SystemExit("phase 18: %s\n%s" % ("; ".join(bad), tail))
+    res = {"card": smi, "device": device,
+           "seconds": time.perf_counter() - t0,
+           "passed": sum(got[n]["passed"] for n in files),
+           "files": {n: got[n] for n in files}}
+    log("phase 18: %d cases of %d JAX test files passed on %s in %.1f s"
+        % (res["passed"], len(files), device, res["seconds"]))
+    return res
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
@@ -5005,6 +5161,7 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     shim_k = phase_serve_kernels(
         ScanTables.from_bitap(shim_cr.tables, dev),
         shim_shapes, pool, dev, "shim")
+    card_files = phase_card_files(smi)
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -5019,7 +5176,7 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         "quality": quality, "quality_kernels": quality_k,
         "controller": controller, "controller_kernels": controller_k,
         "front_door": front, "front_door_kernels": front_k,
-        "shim_kernels": shim_k, "sass": sass,
+        "shim_kernels": shim_k, "card_files": card_files, "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -5212,6 +5369,9 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                               front_k[name]["shapes"].values()))
         for name, what in (("pair_scan", "front door, config #1"),
                            ("step_scan", "front door"))]
+    print("phase 18 " + json.dumps({
+        k: card_files[k] for k in ("card", "seconds", "passed", "files")}),
+        flush=True)
     print(json.dumps({"kernels": serve_entries + mesh_entries
                       + rollout_entries + post_entries + quality_entries
                       + controller_entries + front_entries

@@ -96,6 +96,40 @@ def test_batcher_verdicts_equal_jax(packs, n_lanes):
         jb.close()
 
 
+def test_breaker_render_names_each_lanes_device(packs):
+    """``dbg breaker`` over a three-lane port batcher's ``/healthz``: one
+    row a lane, each naming the port's device (``cpu``, where the JAX
+    package names its runtime's ``TFRT_CPU``), and the JAX renderer
+    gives the same text from the same body."""
+    import asyncio
+    import json
+
+    from ingress_plus_tpu.control.dbg import render_breaker as jax_render
+    from ingress_plus_tpu_torch.control.dbg import render_breaker
+    from ingress_plus_tpu_torch.serve.server import ServeLoop
+
+    tb = Batcher(DetectionPipeline(packs[1], device="cpu"), n_lanes=3,
+                 max_batch=8)
+    try:
+        _serve(tb, [_port(lr.request)
+                    for lr in jax_corpus(n=24, seed=SEED, tenants=1)])
+        serve = ServeLoop(tb, "/tmp/unused-port-lanes.sock")
+        status, _ctype, body = asyncio.run(
+            serve._route_http("GET", "/healthz", b""))
+        assert status.startswith("200")
+        health = json.loads(body)
+        lanes = health["robustness"]["lanes"]
+        assert [(ln["lane"], ln["device"]) for ln in lanes] == \
+            [(0, "cpu"), (1, "cpu"), (2, "cpu")]
+        out = render_breaker(health)
+        rows = out.split("lanes:\n", 1)[1].splitlines()[1:]
+        assert [r.split()[:2] for r in rows] == \
+            [["0", "cpu"], ["1", "cpu"], ["2", "cpu"]]
+        assert out == jax_render(health)
+    finally:
+        tb.close()
+
+
 def _drive_stream_api(b, metas, cases):
     handles = [b.begin_stream(m) for m in metas]
     for off in range(0, max(len(c.body) for c in cases), CHUNK):

@@ -58,7 +58,7 @@ from ingress_plus_tpu_torch.serve.client import drive
 from ingress_plus_tpu_torch.serve.normalize import Request
 from ingress_plus_tpu_torch.serve.protocol import encode_request
 
-from torch_ported_tests import one_torch_thread, ported  # noqa: F401
+from torch_ported_tests import ported
 
 REPO = Path(__file__).resolve().parent.parent
 PREFIX = "nginx.ingress.kubernetes.io/"

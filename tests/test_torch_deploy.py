@@ -3,8 +3,7 @@ the postanalytics consolidator, on the CPU.
 
 The JAX package's ``tests/test_deploy_trace.py`` runs against the port
 but for three tests that pin the JAX render (each named below with its
-reason); their port twins follow, and ``test_batcher_records_traces``
-runs with its pipeline on the CPU.  Every ``python -m
+reason); their port twins follow.  Every ``python -m
 ingress_plus_tpu_torch.…`` command the port renders is accepted by that
 module's own argument parser, the port reads the JAX ``deploy/values.yaml``
 and renders what the JAX renderer does from it but for the documented
@@ -26,37 +25,22 @@ from ingress_plus_tpu_torch.control.deploy import (
     write_static,
 )
 
-from torch_ported_tests import one_torch_thread, ported  # noqa: F401
+from torch_ported_tests import ported
 
 REPO = Path(__file__).resolve().parent.parent
 TORCH_DEPLOY = REPO / "deploy" / "torch"
 
-_PORTED = ported("test_deploy_trace", exclude={
+globals().update(ported("test_deploy_trace", exclude={
     "test_render_contains_architecture":
-        "pins google.com/tpu: 1; the port asks for nvidia.com/gpu: 1 "
+        "(a) pins google.com/tpu: 1; the port asks for nvidia.com/gpu: 1 "
         "(twin: test_port_render_contains_architecture)",
     "test_static_manifests_in_sync":
-        "reads the pre-port deploy/static/; the port writes "
+        "(a) reads the pre-port deploy/static/; the port writes "
         "deploy/torch/static/ (twin: test_port_static_manifests_in_sync)",
     "test_values_yaml_drives_render":
-        "the JAX deploy/values.yaml names the JAX image (twin: "
+        "(a) the JAX deploy/values.yaml names the JAX image (twin: "
         "test_port_values_yaml_drives_render)",
-})
-globals().update(_PORTED)
-
-
-def test_batcher_records_traces(monkeypatch):
-    """The JAX test as it stands, with its pipeline on the CPU: the
-    port's ``DetectionPipeline`` defaults to the card and raises without
-    one, so the test's own construction gets ``device="cpu"``."""
-    from ingress_plus_tpu_torch.models import pipeline
-
-    class OnCpu(pipeline.DetectionPipeline):
-        def __init__(self, *args, device="cpu", **kw):
-            super().__init__(*args, device=device, **kw)
-
-    monkeypatch.setattr(pipeline, "DetectionPipeline", OnCpu)
-    _PORTED["test_batcher_records_traces"]()
+}))
 
 
 def test_port_render_contains_architecture():

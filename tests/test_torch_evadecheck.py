@@ -8,7 +8,7 @@ to the JAX package's on the same seeds.
 """
 
 import pytest
-from torch_ported_tests import one_torch_thread, ported  # noqa: F401
+from torch_ported_tests import ported
 
 from ingress_plus_tpu_torch.analysis import run_evadecheck
 from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
@@ -18,7 +18,7 @@ from ingress_plus_tpu_torch.utils import evasion
 
 globals().update(ported("test_evadecheck", exclude={
     "test_native_twin_agrees_on_comment_glue":
-        "loads the JAX package's native/confirm build; the port's twin "
+        "(a) loads the JAX package's native/confirm build; the port's twin "
         "(csrc/libdetect.cc) is held by test_torch_native_confirm.py",
 }))
 

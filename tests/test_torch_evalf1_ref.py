@@ -1,0 +1,6 @@
+"""The JAX package's ``tests/test_evalf1.py``, whole, against the port on
+the CPU (``tests/torch_ported_tests.py``)."""
+
+from torch_ported_tests import ported
+
+globals().update(ported("test_evalf1", exclude={}))

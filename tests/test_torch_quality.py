@@ -13,7 +13,7 @@ import json
 from pathlib import Path
 
 import pytest
-from torch_ported_tests import one_torch_thread, ported  # noqa: F401
+from torch_ported_tests import ported
 
 from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
 from ingress_plus_tpu_torch.compiler.sigpack import load_bundled_rules

@@ -7,7 +7,7 @@ free port of this process, and its socket path fits AF_UNIX under any
 temporary directory.
 """
 
-from torch_ported_tests import native_patch, one_torch_thread, ported  # noqa: F401
+from torch_ported_tests import native_patch, ported
 
 globals().update(ported("test_serve_e2e", exclude={},
                         patch=native_patch("LOADGEN"), ports=(19901,)))

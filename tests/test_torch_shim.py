@@ -11,7 +11,7 @@ command table.  The binaries come from the port's build of
 HTTP port 19907 is a free port of this process.
 """
 
-from torch_ported_tests import native_patch, one_torch_thread, ported  # noqa: F401
+from torch_ported_tests import native_patch, ported
 
 from ingress_plus_tpu_torch.ops.cuda_build import build_native
 

@@ -9,7 +9,7 @@ behind the sidecar is ``python -m ingress_plus_tpu_torch.serve
 --platform cpu``.
 """
 
-from torch_ported_tests import native_patch, one_torch_thread, ported  # noqa: F401
+from torch_ported_tests import native_patch, ported
 
 globals().update(ported(
     "test_sidecar", exclude={}, patch=native_patch("BIN", "LOADGEN"),
