@@ -4,7 +4,9 @@ versions.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--kernels-only`` stops after phases 1, 2 and 4 and the segment sweep:
-a quick check of both kernels.)
+a quick check of both kernels.  ``--sanitize-child [--checked]`` runs
+phase 19's child alone: the case plan on the card, each launch against
+its plain version.)
 
 Both kernels split each row's serial chain into segments
 (``ingress_plus_tpu_torch/ops/segments.py``); every launch below runs at
@@ -14,10 +16,12 @@ at one segment (the same kernel unsplit) in the same run.
 Phases (any failure ends the run with a non-zero exit code):
 
 1. Build both kernels from ``ingress_plus_tpu_torch/csrc`` (one nvcc per
-   source, sm_90a), the native confirm twin (``csrc/libdetect.cc``, g++)
-   and phase 17's front door binaries (``native/``, g++ and gcc), all
-   started together, each build timed; print the card's name and power
-   limit.
+   source, sm_90a), the native confirm twin (``csrc/libdetect.cc``, g++),
+   phase 17's front door binaries (``native/``, g++ and gcc) and phase
+   19's builds (both kernels checked, ``-DSCAN_CHECK``, and without
+   ``-lineinfo``; the sidecar and loadgen under ASan+UBSan, the sidecar
+   under TSan), all started together, each build timed; print the card's
+   name and power limit.
 2. Pair kernel against plain, both configurations: the CUDA kernel
    (``ByteScanner`` raw-byte, ``PairScanner`` class-id) and the plain
    ``ops/scan.py::scan_pairs`` on the same CUDA tensors -- B=1024 seeded
@@ -312,8 +316,34 @@ Phases (any failure ends the run with a non-zero exit code):
     ``/debug/kernels``, read in the child).  Prints, before the kernels
     line, ``phase 18`` and per file the passed, excluded, pair and step
     launches and seconds, beside the card's name and power limit.
-19. Read each kernel's compiled loop (SASS); print the phase 18 line, the
-    kernels line, the nvidia-smi line and the result line.
+19. The port's native code under the sanitizers, all at once: (a)
+    compute-sanitizer (found beside nvcc; missing, the run fails) with
+    each of ``memcheck``, ``racecheck``, ``synccheck`` and ``initcheck``
+    (``--error-exitcode``, checking only ``pair_scan_kernel`` and
+    ``step_scan_kernel``; memcheck and initcheck with
+    ``PYTORCH_NO_CUDA_MEMORY_CACHING=1``) over a ``--sanitize-child``:
+    every case of ``sanitize_plan`` (the main path's shapes, B=8 split and
+    unsplit, a partial last block split and unsplit, lengths 0, 1, odd,
+    L-1, L and L+1, carried and not) on the bundled pack (W=225) and the
+    2x pack (W=285), through ``ByteScanner``'s, ``PairScanner``'s and
+    ``StepScanner``'s tables, each launch bit-identical to its plain
+    version.  A tool passes only with exit 0, its summary line at 0 and
+    the child's bit-identity; a tool that says it cannot instrument the
+    card (``SANITIZE_REFUSED``) is recorded as refused, anything else
+    fails the run.  (b) The same plan through the kernels' checked build
+    (``csrc/scan_common.cuh``: bulk-copy spans inside their buffers and
+    slots, every staged token equal to device memory, halo and row
+    checks, and a shadow of each warp's buffers that finds two lanes'
+    conflicting accesses between two ``__syncwarp``, a refill of a buffer
+    another lane read since the last one, and a wait on the wrong
+    mbarrier phase): bit-identical, 0 check failures.  (c) The ASan+UBSan
+    sidecar (with the ASan loadgen), then the TSan sidecar, in front of
+    one card server on ``tests/test_sanitizers.py``'s three rules, 200
+    requests each: all answered, attacks found, no sanitizer report.
+    (d) ``cuobjdump -sass`` of both kernels equal with and without
+    ``-lineinfo``.  Prints the phase 19 line before the kernels line.
+20. Read each kernel's compiled loop (SASS); print the phase 18 and 19
+    lines, the kernels line, the nvidia-smi line and the result line.
 
 Kernel times are device times: several launches captured in one CUDA
 graph, CUDA events around the replay, the median of the replays, per
@@ -5028,19 +5058,446 @@ def phase_card_files(smi: str, device: str = "cuda",
     return res
 
 
+# ------------------------------------------------ phase 19: the sanitizers
+
+#: phase 19: the case plan's (B, L): the main path's (phases 2 and 4), a
+#: partial last block unsplit (phase 2's edge shape: 1001 rows of an odd
+#: L) and split (3 rows of 15 segments: 45 units); each on both packs
+SANITIZE_SHAPES = ((SCAN_B, 64), (SCAN_B, 2048), (SCAN_B, 16384),
+                   (SPLIT_B, 2048), (SPLIT_B, 16384), (1001, 333), (3, 1900))
+#: the shapes also run without a carried state and match, as the batch
+#: path launches
+SANITIZE_UNCARRIED = ((SCAN_B, 2048), (1001, 333))
+SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+#: compute-sanitizer checks only these kernels (substrings of their
+#: mangled names); torch's own run unchecked
+SANITIZE_KERNELS = ("pair_scan_kernel", "step_scan_kernel")
+#: the tools under which each tensor is an allocation of its own, so a
+#: read past one is a read past an allocation
+SANITIZE_OWN_ALLOCATIONS = ("memcheck", "initcheck")
+SANITIZE_EXIT = 86
+SANITIZE_LIMIT_S = 600
+#: what compute-sanitizer prints when it cannot instrument the card (a
+#: card host whose kernel does not pass the debugger interface through)
+SANITIZE_REFUSED = "Error: Device not supported"
+_SUMMARY = re.compile(r"^=+ (?:ERROR SUMMARY: (\d+) errors?|RACECHECK "
+                      r"SUMMARY: (\d+) hazards? displayed)", re.M)
+_CHILD_LINE = re.compile(r"^sanitize-child (\{.*\})\s*$", re.M)
+#: the sidecar leg: ``tests/test_sanitizers.py``'s three rules and flow
+#: (100 frames, seed 11, 30% attacks; 200 requests over 4 connections x 8
+#: in flight; a 60 s deadline)
+SANITIZE_RULES = r"""
+SecRule REQUEST_URI|ARGS|REQUEST_BODY "@rx (?i)union\s+select" \
+    "id:942100,phase:2,block,t:urlDecodeUni,severity:CRITICAL,tag:'attack-sqli'"
+SecRule REQUEST_URI|ARGS|REQUEST_BODY "@rx (?i)<script" \
+    "id:941100,phase:2,block,t:urlDecodeUni,severity:CRITICAL,tag:'attack-xss'"
+SecRule REQUEST_URI|ARGS|REQUEST_BODY|REQUEST_HEADERS "@rx /etc/passwd" \
+    "id:930120,phase:2,block,severity:CRITICAL,tag:'attack-lfi'"
+"""
+SANITIZE_REQUESTS = 200
+#: the text of a report of ASan, UBSan or TSan
+SANITIZER_REPORTS = ("ERROR: AddressSanitizer", "runtime error:",
+                     "WARNING: ThreadSanitizer")
+
+
+def sanitize_plan(W: int) -> list:
+    """Phase 19's cases over a pack of ``W`` words, each a dict: ``B``,
+    ``L``, ``carried`` (a state and a sticky match given), ``G`` and
+    ``segments`` (``plan_segments``), ``segments_run`` (the launches' forced
+    segment lengths: None for the plan's, and ``L`` too where the plan
+    splits), ``units`` (B x segments), ``partial_block`` (the last block of
+    8 units has units past the rows) and ``lanes_past_w`` (the last word
+    tile's lanes past W).  Every case runs the raw-byte and class-id pair
+    launches and the step launch."""
+    from ingress_plus_tpu_torch.ops.segments import (
+        UNITS_PER_BLOCK,
+        WORD_TILE,
+        plan_segments,
+    )
+
+    cases = []
+    for B, L in SANITIZE_SHAPES:
+        plan = plan_segments(B, L, W)
+        split = plan.segments > 1
+        for carried in (True, False) if (B, L) in SANITIZE_UNCARRIED \
+                else (True,):
+            cases.append({
+                "B": B, "L": L, "carried": carried, "G": plan.G,
+                "segments": plan.segments,
+                "segments_run": [None, L] if split else [None],
+                "units": B * plan.segments,
+                "partial_block": B * plan.segments % UNITS_PER_BLOCK != 0,
+                "lanes_past_w": W % WORD_TILE != 0})
+    return cases
+
+
+def sanitize_lengths(B: int, L: int, G: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """Seeded lengths in [0, L], a third of them odd, led by the edges:
+    for an unsplit launch 0, 1, 3, L-1, L and L+1 (one above L, which the
+    kernels clamp); for a split one L+1, G-1, 2G+33, 0, 1, G+1, L-1, L
+    (segment boundaries first), as many as there are rows."""
+    n = rng.integers(0, L + 1, B).astype(np.int32)
+    n[::3] = np.minimum(n[::3] | 1, L)
+    edges = ([0, 1, 3, L - 1, L, L + 1] if G >= L else
+             [L + 1, G - 1, 2 * G + 33, 0, 1, G + 1, L - 1, L])
+    k = min(B, len(edges))
+    n[:k] = edges[:k]
+    return n
+
+
+def sanitize_inputs(case: dict, W: int, rng: np.random.Generator) -> tuple:
+    """A case's (tokens, lengths, match, state) as numpy arrays: seeded
+    bytes of every value with attack substrings spliced in, the lengths of
+    :func:`sanitize_lengths`, and a sparse sticky match and a carried state
+    (None, None when the case carries none)."""
+    B, L = case["B"], case["L"]
+    toks = rng.integers(0, 256, (B, L), dtype=np.uint8)
+    for i in range(B):
+        a = ATTACKS[i % len(ATTACKS)]
+        if len(a) < L:
+            at = int(rng.integers(0, L - len(a)))
+            toks[i, at:at + len(a)] = np.frombuffer(a, np.uint8)
+    lens = sanitize_lengths(B, L, case["G"], rng)
+    match, state = carried(B, W, rng) if case["carried"] else (None, None)
+    return toks, lens, match, state
+
+
+def sanitize_child(checked: bool) -> int:
+    """``chip_smoke.py --sanitize-child [--checked]``: every case of
+    :func:`sanitize_plan` on the bundled pack and on the 2x pack, each
+    launched through ``ByteScanner``'s, ``PairScanner``'s and
+    ``StepScanner``'s tables on the card (the shipping kernels, or with
+    ``checked`` the ``-DSCAN_CHECK`` builds); after each case's launches,
+    every launch held bit-identical to its plain version.  Prints one
+    ``sanitize-child {...}`` line; exits 0 when every launch agreed (and,
+    checked, no check failed)."""
+    from ingress_plus_tpu_torch.compiler import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.packgen import scale_rules
+    from ingress_plus_tpu_torch.compiler.sigpack import load_bundled_rules
+    from ingress_plus_tpu_torch.ops.cuda_build import CHECK_FLAGS, ScanKernel
+    from ingress_plus_tpu_torch.ops.pair_scan import (
+        PAIR_SCAN,
+        ByteScanner,
+        PairScanner,
+    )
+    from ingress_plus_tpu_torch.ops.pair_scan import _plain as pair_plain
+    from ingress_plus_tpu_torch.ops.scan import (
+        ScanTables,
+        classes_for,
+        from_numpy_u32,
+        scan_bytes,
+    )
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
+    from ingress_plus_tpu_torch.weights import load_pack
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    if checked:
+        pair_k = ScanKernel("pair_scan", True, CHECK_FLAGS)
+        step_k = ScanKernel("step_scan", False, CHECK_FLAGS)
+    else:
+        pair_k, step_k = PAIR_SCAN, STEP_SCAN
+    packs = {"bundled": load_pack(),
+             "2x": compile_ruleset(scale_rules(load_bundled_rules(),
+                                               SCALE_FACTOR))}
+    rng = np.random.default_rng(SEED + 19)
+    res = {"checked": checked, "packs": {}, "cases": 0, "launches": 0,
+           "disagree": []}
+    for pack, cr in packs.items():
+        tables = ScanTables.from_bitap(cr.tables, dev)
+        W = tables.n_words
+        byte = forced(pair_k, ByteScanner(tables))
+        step = forced(step_k, StepScanner(tables))
+        cid = PairScanner(tables)
+        plan = sanitize_plan(W)
+        res["packs"][pack] = {"W": W, "K1": tables.class_table.shape[0],
+                              "cases": len(plan)}
+        for case in plan:
+            toks_np, len_np, match_np, state_np = sanitize_inputs(case, W,
+                                                                  rng)
+            toks = torch.from_numpy(toks_np).to(dev)
+            lens = torch.from_numpy(len_np).to(dev)
+            match = state = None
+            if case["carried"]:
+                match = from_numpy_u32(match_np, dev)
+                state = from_numpy_u32(state_np, dev)
+            cls = classes_for(tables.byte_class, toks, lens).to(
+                torch.int32).contiguous()
+            got = []
+            for seg in case["segments_run"]:
+                got += [
+                    ("raw_byte", seg, byte(toks, lens, state, match, seg)),
+                    ("class_id", seg, pair_k(
+                        cls, lens, cid.class_tiles, tables.init_mask,
+                        tables.final_mask, state=state, match=match,
+                        segment=seg)),
+                    ("step", seg, step(toks, lens, state, match, seg))]
+            torch.cuda.synchronize()
+            pair_ref = pair_plain(tables, toks, lens, state, match)
+            step_ref = scan_bytes(tables, toks, lens, state, match)
+            for cfg, seg, (m, s) in got:
+                m_ref, s_ref = step_ref if cfg == "step" else pair_ref
+                if not (torch.equal(m, m_ref) and torch.equal(s, s_ref)):
+                    res["disagree"].append(
+                        "%s %s B=%d L=%d carried=%s segment=%s: match diff "
+                        "words=%d state diff words=%d"
+                        % (pack, cfg, case["B"], case["L"], case["carried"],
+                           seg, int((m != m_ref).sum()),
+                           int((s != s_ref).sum())))
+            res["cases"] += 1
+            res["launches"] += len(got)
+    res["kernel_launches"] = {"pair_scan": pair_k.launches,
+                              "step_scan": step_k.launches}
+    if checked:
+        res["check_failures"] = {k.name: k.check_errors()
+                                 for k in (pair_k, step_k)}
+    res["identical"] = not res["disagree"]
+    ok = res["identical"] and not any(
+        f["total"] for f in res.get("check_failures", {}).values())
+    res["seconds"] = time.perf_counter() - t0
+    print("sanitize-child " + json.dumps(res), flush=True)
+    return 0 if ok else 1
+
+
+def sanitizer_argv(tool_path: str, tool: str) -> list:
+    """compute-sanitizer running ``tool`` over the sanitize child: an
+    exit code of its own on any report, only the scan kernels checked."""
+    argv = [tool_path, "--tool", tool, "--error-exitcode",
+            str(SANITIZE_EXIT), "--print-limit", "100"]
+    for name in SANITIZE_KERNELS:
+        argv += ["--kernel-name", "kns=" + name]
+    here = os.path.dirname(os.path.abspath(__file__))
+    return argv + [sys.executable, os.path.join(here, "chip_smoke.py"),
+                   "--sanitize-child"]
+
+
+def sanitizer_outcome(rc: int, text: str) -> dict:
+    """One compute-sanitizer child's verdict from its exit code and
+    output: ``clean`` when it exited 0, printed its summary line with 0
+    errors (racecheck: 0 hazards) and its child's bit-identity held;
+    ``refused`` when the tool said it cannot instrument the card
+    (:data:`SANITIZE_REFUSED`: nothing was checked); ``failed``
+    otherwise, a missing summary line included."""
+    child = _CHILD_LINE.findall(text)
+    child = json.loads(child[-1]) if child else None
+    sums = _SUMMARY.findall(text)
+    reports = int(next(n for n in sums[-1] if n)) if sums else None
+    out = {"rc": rc, "reports": reports, "child": child}
+    if SANITIZE_REFUSED in text:
+        return dict(out, status="refused", why=SANITIZE_REFUSED)
+    why = ("no summary line" if reports is None
+           else "%d reports" % reports if reports
+           else "exit code %d" % rc if rc != 0
+           else "no sanitize-child line" if child is None
+           else "launches disagree with their plain versions"
+           if not child["identical"] else None)
+    return dict(out, status="failed" if why else "clean", why=why)
+
+
+_SASS_CODE = re.compile(r"^(?:Function : |/\*[0-9a-f]{4,}\*/)")
+
+
+def sass_code(text: str) -> list:
+    """The function names and instruction lines of a ``cuobjdump -sass``
+    dump (its header names the source file only under ``-lineinfo``)."""
+    return [ln.strip() for ln in text.splitlines()
+            if _SASS_CODE.match(ln.strip())]
+
+
+def sass_lineinfo_equal(pairs: dict) -> dict:
+    """For each kernel, ``cuobjdump -sass`` of its library built with
+    ``-lineinfo`` (the shipping flags) and without: the same functions
+    and instructions (:func:`sass_code`) or not, and how many
+    instructions."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name, (with_li, without_li) in pairs.items():
+        lines = [sass_code(subprocess.run(
+            [tool, "-sass", str(p)], capture_output=True, text=True,
+            check=True, timeout=120).stdout) for p in (with_li, without_li)]
+        diff = next((i for i, (a, b) in enumerate(zip(*lines)) if a != b),
+                    None)
+        if diff is None and len(lines[0]) != len(lines[1]):
+            diff = min(len(lines[0]), len(lines[1]))
+        out[name] = {"equal": diff is None,
+                     "instructions": sum(ln.startswith("/*") for ln in
+                                         lines[0]),
+                     "first_difference": None if diff is None else
+                     [ln[diff] if diff < len(ln) else None for ln in lines]}
+    return out
+
+
+def sanitized_front_door(binaries: dict, server_args=()) -> dict:
+    """The ASan+UBSan sidecar (with the ASan loadgen), then the TSan
+    sidecar (with the plain loadgen), each in front of one server on
+    :data:`SANITIZE_RULES`, given :data:`SANITIZE_REQUESTS` requests of
+    ``tests/test_sanitizers.py``'s corpus: every request answered, attacks
+    among them, the sidecar stopped by SIGTERM with exit 0 or -15, and no
+    sanitizer report from the sidecar or loadgen."""
+    from ingress_plus_tpu_torch.utils.export_corpus import export
+    from ingress_plus_tpu_torch.utils.uds import socket_path
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="ipt-san-") as d:
+        rules = os.path.join(d, "rules")
+        os.mkdir(rules)
+        with open(os.path.join(rules, "tiny.conf"), "w") as f:
+            f.write(SANITIZE_RULES)
+        corpus = os.path.join(d, "c.bin")
+        export(corpus, n=100, seed=11, attack_fraction=0.3)
+        with ServeChild("--rules-dir", rules, "--no-warmup",
+                        *server_args) as srv:
+            for leg, side_bin, gen_bin in (
+                    ("asan", "sidecar_asan", "loadgen_asan"),
+                    ("tsan", "sidecar_tsan", "loadgen")):
+                sock = socket_path(d, "side_%s.sock" % leg)
+                tails = {}
+                side = NativeChild(side_bin, [
+                    str(binaries[side_bin]), "--listen", sock, "--upstream",
+                    srv.sock, "--deadline-ms", FRONT_DEADLINE_MS], sock, 0)
+                with side:
+                    run = run_loadgen(binaries[gen_bin], sock, corpus,
+                                      SANITIZE_REQUESTS, 4, 8, tails)
+                    side.child.terminate()
+                    rc = side.child.wait(timeout=30)
+                    side_log = side.log()
+                found = [r for r in SANITIZER_REPORTS
+                         if r in side_log or r in tails["loadgen"]()]
+                bad = ([] if run["requests"] == SANITIZE_REQUESTS
+                       else ["%d of %d requests answered"
+                             % (run["requests"], SANITIZE_REQUESTS)])
+                bad += [] if run["attacks"] > 0 else ["no attack found"]
+                bad += [] if rc in (0, -15) else ["sidecar exit code %d" % rc]
+                bad += ["report: %s" % r for r in found]
+                if bad:
+                    raise SystemExit(
+                        "phase 19 %s sidecar: %s\n--- sidecar\n%s\n--- "
+                        "loadgen\n%s" % (leg, "; ".join(bad),
+                                         side_log[-4000:],
+                                         tails["loadgen"]()[-4000:]))
+                res[leg] = {"sidecar": side_bin, "loadgen": gen_bin,
+                            "requests": run["requests"],
+                            "attacks": run["attacks"],
+                            "fail_open": run["fail_open"], "sidecar_rc": rc,
+                            "reports": 0}
+                log("phase 19 %s: %s + %s in front of %s: %d requests, %d "
+                    "attacks, sidecar exit %d, no sanitizer report"
+                    % (leg, side_bin, gen_bin, " ".join(server_args)
+                       or "a card server", run["requests"], run["attacks"],
+                       rc))
+    return res
+
+
+def logged_run(argv: list, env: dict, path: str, limit: float) -> tuple:
+    """Run ``argv`` from the repository root with its output in ``path``:
+    (exit code, or None when it ran past ``limit`` seconds and was
+    killed; its seconds)."""
+    t = time.perf_counter()
+    with open(path, "w") as f:
+        try:
+            rc = subprocess.run(argv, stdout=f, stderr=subprocess.STDOUT,
+                                env=env, timeout=limit,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__))).returncode
+        except subprocess.TimeoutExpired:
+            rc = None
+    return rc, time.perf_counter() - t
+
+
+def phase_sanitizers(binaries: dict, sass_pairs: dict, smi: str,
+                     server_args=()) -> dict:
+    """Phase 19 (the module docstring): compute-sanitizer's four tools
+    over the sanitize child and the checked build's child, all at once,
+    and the sanitized sidecars in front of a card server meanwhile; then
+    the ``-lineinfo`` SASS comparison.  Raises SystemExit on any
+    failure."""
+    from ingress_plus_tpu_torch.ops.cuda_build import find_compute_sanitizer
+
+    t0 = time.perf_counter()
+    try:
+        tool_path = find_compute_sanitizer()
+    except RuntimeError as e:
+        raise SystemExit("phase 19: %s" % e)
+    me = os.path.abspath(__file__)
+    res = {"card": smi, "compute_sanitizer": tool_path, "tools": {}}
+    with tempfile.TemporaryDirectory(prefix="ipt-sanitize-") as d, \
+            ThreadPoolExecutor(len(SANITIZE_TOOLS) + 1) as pool:
+        runs = {}
+        for name in SANITIZE_TOOLS + ("checked",):
+            env = dict(os.environ)
+            if name in SANITIZE_OWN_ALLOCATIONS:
+                env["PYTORCH_NO_CUDA_MEMORY_CACHING"] = "1"
+            argv = (sanitizer_argv(tool_path, name) if name != "checked"
+                    else [sys.executable, me, "--sanitize-child",
+                          "--checked"])
+            path = os.path.join(d, name + ".log")
+            runs[name] = (pool.submit(logged_run, argv, env, path,
+                                      SANITIZE_LIMIT_S), path)
+        res["front_door"] = sanitized_front_door(binaries, server_args)
+        for name, (run, path) in runs.items():
+            rc, secs = run.result()
+            with open(path, errors="replace") as f:
+                text = f.read()
+            if rc is None:
+                raise SystemExit("phase 19 %s: still running after %d s:\n%s"
+                                 % (name, SANITIZE_LIMIT_S, text[-4000:]))
+            if name == "checked":
+                child = _CHILD_LINE.findall(text)
+                if rc != 0 or not child:
+                    raise SystemExit("phase 19 checked build: exit %d:\n%s"
+                                     % (rc, text[-6000:]))
+                child = json.loads(child[-1])
+                res["checked"] = dict(child, rc=rc, seconds=secs)
+                log("phase 19 checked build: %d cases, %d launches (pair %d, "
+                    "step %d), bit-identical, check failures %s, %.1f s"
+                    % (child["cases"], child["launches"],
+                       child["kernel_launches"]["pair_scan"],
+                       child["kernel_launches"]["step_scan"],
+                       json.dumps(child["check_failures"]), secs))
+                continue
+            out = sanitizer_outcome(rc, text)
+            summary = [ln for ln in text.splitlines()
+                       if "SUMMARY" in ln or SANITIZE_REFUSED in ln][-2:]
+            res["tools"][name] = dict(out, seconds=secs, summary=summary)
+            if out["status"] == "failed":
+                raise SystemExit("phase 19 %s: %s\n%s"
+                                 % (name, out["why"], text[-6000:]))
+            log("phase 19 compute-sanitizer --tool %s: %s (%s), %.1f s"
+                % (name, out["status"], " / ".join(summary), secs))
+    res["sass_lineinfo"] = sass_lineinfo_equal(sass_pairs)
+    for name, r in res["sass_lineinfo"].items():
+        if not r["equal"]:
+            raise SystemExit("phase 19: %s's SASS differs with -lineinfo: %s"
+                             % (name, r["first_difference"]))
+    log("phase 19 -lineinfo: SASS equal with and without it (%s)"
+        % ", ".join("%s %d instructions" % (k, v["instructions"])
+                    for k, v in res["sass_lineinfo"].items()))
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 19: %.1f s; compute-sanitizer %s; checked build and "
+        "sanitized sidecars clean" % (res["seconds"], json.dumps(
+            {k: v["status"] for k, v in res["tools"].items()})))
+    return res
+
+
 def main() -> int:
     if sys.argv[1:] == ["--stream-cpu-reference"]:
         return stream_cpu_reference()
     if sys.argv[1:2] == ["--post-cpu-reference"]:
         return post_cpu_reference(sys.argv[2], int(sys.argv[3]))
     kernels_only = sys.argv[1:] == ["--kernels-only"]
-    if sys.argv[1:] and not kernels_only:
-        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+    sanitize = sys.argv[1:] in (["--sanitize-child"],
+                                ["--sanitize-child", "--checked"])
+    if sys.argv[1:] and not (kernels_only or sanitize):
+        print("usage: chip_smoke.py [--kernels-only | --sanitize-child "
+              "[--checked]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if sanitize:
+        return sanitize_child("--checked" in sys.argv)
     child = None if kernels_only else stream_cpu_child()
     try:
         return run_phases(kernels_only, child)
@@ -5054,7 +5511,14 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     """Every phase (the module docstring); ``stream_child`` is phase 6's
     CPU reference, already running."""
     from ingress_plus_tpu_torch.models import libdetect
-    from ingress_plus_tpu_torch.ops.cuda_build import build_native
+    from ingress_plus_tpu_torch.ops.cuda_build import (
+        CHECK_FLAGS,
+        NATIVE_BINARIES,
+        NVCC_FLAGS,
+        SANITIZER_BINARIES,
+        KernelLibrary,
+        build_native,
+    )
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
     from ingress_plus_tpu_torch.ops.scan import ScanTables, scan_pairs
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN
@@ -5065,21 +5529,34 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
     sources = (PAIR_SCAN.lib, STEP_SCAN.lib, libdetect._TWIN)
+    # phase 19: the kernels' checked builds, and their shipping builds
+    # without -lineinfo (the SASS comparison)
+    no_lineinfo = tuple(f for f in NVCC_FLAGS if f != "-lineinfo")
+    extra = tuple(KernelLibrary(k.lib.source, {}, None, flags=flags)
+                  for flags in (CHECK_FLAGS, no_lineinfo)
+                  for k in (PAIR_SCAN, STEP_SCAN))
 
     def build(lib):
         t = time.perf_counter()
-        return lib.build(verbose=True), time.perf_counter() - t
+        return lib.build(verbose=lib in sources), time.perf_counter() - t
 
     def build_front():
         t = time.perf_counter()
-        return build_native(), time.perf_counter() - t
+        return (build_native(NATIVE_BINARIES + SANITIZER_BINARIES),
+                time.perf_counter() - t)
 
     # one compiler per source (nvcc for the kernels, g++ for the twin),
-    # beside the front door's binaries (phase 17)
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
+    # beside the front door's binaries (phase 17) and their sanitizer
+    # builds (phase 19)
+    with ThreadPoolExecutor(len(sources) + len(extra) + 1) as pool:
         front_built = pool.submit(build_front)
-        built = list(pool.map(build, sources))
+        built = list(pool.map(build, sources + extra))
         native, native_s = front_built.result()
+    built, extra_built = built[:len(sources)], built[len(sources):]
+    for lib, (path, secs) in zip(extra, extra_built):
+        log("built %s (%s) in %.1fs" % (path.name, " ".join(
+            f for f in lib.flags if f not in NVCC_FLAGS) or "no -lineinfo",
+            secs))
     dev = torch.device("cuda")
     for src, (lib, secs) in zip(sources, built):
         src.load(dev)
@@ -5162,6 +5639,9 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         ScanTables.from_bitap(shim_cr.tables, dev),
         shim_shapes, pool, dev, "shim")
     card_files = phase_card_files(smi)
+    sanitizers = phase_sanitizers(native, {
+        "pair_scan": (libs[0], extra_built[2][0]),
+        "step_scan": (libs[1], extra_built[3][0])}, smi)
     sass = {"pair_scan": sass_loop_mix(libs[0], "pair", 2),
             "step_scan": sass_loop_mix(libs[1], "byte", 1)}
     log("sass loops: %s" % json.dumps(sass))
@@ -5176,7 +5656,8 @@ def run_phases(kernels_only: bool, stream_child) -> int:
         "quality": quality, "quality_kernels": quality_k,
         "controller": controller, "controller_kernels": controller_k,
         "front_door": front, "front_door_kernels": front_k,
-        "shim_kernels": shim_k, "card_files": card_files, "sass": sass,
+        "shim_kernels": shim_k, "card_files": card_files,
+        "sanitizers": sanitizers, "sass": sass,
         "seconds": time.perf_counter() - t0}
     log("detail " + json.dumps(detail))
     tot = main_path["total"]
@@ -5372,6 +5853,16 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     print("phase 18 " + json.dumps({
         k: card_files[k] for k in ("card", "seconds", "passed", "files")}),
         flush=True)
+    print("phase 19 " + json.dumps({
+        "card": smi, "seconds": sanitizers["seconds"],
+        "compute_sanitizer": {k: {f: v[f] for f in ("status", "summary",
+                                                     "seconds")}
+                              for k, v in sanitizers["tools"].items()},
+        "checked": {k: sanitizers["checked"][k] for k in (
+            "cases", "launches", "kernel_launches", "check_failures",
+            "identical", "seconds")},
+        "front_door": sanitizers["front_door"],
+        "sass_lineinfo": sanitizers["sass_lineinfo"]}), flush=True)
     print(json.dumps({"kernels": serve_entries + mesh_entries
                       + rollout_entries + post_entries + quality_entries
                       + controller_entries + front_entries

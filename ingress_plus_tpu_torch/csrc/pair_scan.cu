@@ -50,8 +50,10 @@
 //     32-word slice is one contiguous span, laid out [class][lane] so a
 //     warp's 32 reads of one class row hit 32 distinct banks; no index
 //     arithmetic or divide per element.  One thread starts the copies of
-//     that slice and (raw-byte configuration) of the 257-entry LUT
-//     (cp.async.bulk, completing on a block mbarrier) while every warp's
+//     that slice and (raw-byte configuration) of the LUT's first 256
+//     entries (cp.async.bulk, completing on a block mbarrier; a bulk copy
+//     moves a multiple of 16 bytes, and the 257 entries are 1028, so the
+//     dead index's entry is read on its own) while every warp's
 //     lane 0 starts the copies of its unit's first two token windows (on
 //     the warp's own two mbarriers): all in flight together.  Each window
 //     is mapped once per position (through the LUT, or by clamping the
@@ -97,7 +99,10 @@ constexpr int kWordsPerBlock = 32;   // one word per lane
 constexpr int kUnitsPerBlock = 8;    // one (row, segment) unit per warp
 constexpr int kHalo = 32;            // warm-up positions (16 pairs)
 constexpr int kLutEntries = 257;     // 256 bytes + the dead index
-constexpr int kLutBytes = 1040;      // the LUT's copy, rounded up to 16 B
+constexpr int kLutBytes = 1040;      // the LUT's shared slot, 16 B multiple
+constexpr int kLutCopied = 256;      // entries bulk-copied (1024 B); the
+                                     // dead index is read on its own, so
+                                     // no copy reads past the 257 entries
 constexpr int kMaxK1 = 257;          // the raw byte table + the dead class
 
 // positions staged per window (even): 2 KB of raw tokens either way
@@ -118,7 +123,8 @@ __host__ __device__ inline size_t smem_bytes(int k1) {
   return table_bytes(k1) + (kBytes ? kLutBytes : 0) +
          kUnitsPerBlock * (2 * raw_bytes<kBytes>() +
                            window<kBytes>() * sizeof(uint16_t)) +
-         (1 + 2 * kUnitsPerBlock) * sizeof(uint64_t);
+         (1 + 2 * kUnitsPerBlock) * sizeof(uint64_t) +
+         kUnitsPerBlock * kShadowBytes;
 }
 
 template <bool kBytes>
@@ -156,6 +162,9 @@ pair_scan_kernel(const void* __restrict__ tokens,
   unsigned char* raw = raw_all + warp * 2 * kRaw;
   uint16_t* staged = staged_all + warp * kWin;
   uint64_t* wbar = bars + 1 + 2 * warp;   // this warp's two windows
+  SCAN_CHECK_DO(Shadow sh(reinterpret_cast<ShadowSlot*>(
+                              bars + 1 + 2 * kUnitsPerBlock) + warp, lane);
+                sh.clear());
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 1 + 2 * kUnitsPerBlock; ++i) bar_init(bars + i, 1);
@@ -165,29 +174,43 @@ pair_scan_kernel(const void* __restrict__ tokens,
 
   const Tok* src = static_cast<const Tok*>(tokens) + (size_t)u.row * L +
                    u.from;
+  const size_t span = token_span(B, L, sizeof(Tok));
   const int total = u.end - u.from;
   const int nwin = (total + kWin - 1) / kWin;
   if (threadIdx.x == 0) {
-    bar_expect(bars, (uint32_t)(table_bytes(k1) + (kBytes ? kLutBytes : 0)));
-    bulk_copy(tbl, class_tiles + (size_t)blockIdx.x * k1 * kWordsPerBlock,
-              (uint32_t)table_bytes(k1), bars);
-    if (kBytes) bulk_copy(lut, byte_class, kLutBytes, bars);
+    const uint32_t* slice = class_tiles + (size_t)blockIdx.x * k1 *
+                                              kWordsPerBlock;
+    SCAN_CHECK_DO(
+        check(((uintptr_t)tokens & 15) == 0, kTokensMisaligned, 0);
+        check(inside(slice, table_bytes(k1), class_tiles,
+                     gridDim.x * table_bytes(k1)),
+              kCopyOutsideBuffer, -1);
+        if (kBytes) check(inside(byte_class, kLutCopied * sizeof(int),
+                                 byte_class, kLutEntries * sizeof(int)),
+                          kCopyOutsideBuffer, -2));
+    bar_expect(bars, (uint32_t)(table_bytes(k1) +
+                                (kBytes ? kLutCopied * sizeof(int) : 0)));
+    bulk_copy(tbl, slice, (uint32_t)table_bytes(k1), bars);
+    if (kBytes) bulk_copy(lut, byte_class, kLutCopied * sizeof(int), bars);
   }
   if (lane == 0) {
     for (int k = 0; k < 2 && k < nwin; ++k) {
-      fetch(raw + k * kRaw, src + k * kWin,
-            min(kWin, total - k * kWin) * (uint32_t)sizeof(Tok), wbar + k);
+      SCAN_CHECK_DO(sh.issue(k, false));
+      fetch(raw + k * kRaw, kRaw, src + k * kWin,
+            min(kWin, total - k * kWin) * (uint32_t)sizeof(Tok), tokens,
+            span, wbar + k);
     }
   }
   bar_wait(bars, 0);
   if (kBytes) {   // byte -> offset of its class row; bad ids read as dead
     for (int i = threadIdx.x; i < kLutEntries; i += blockDim.x) {
-      const int c = lut[i];
+      const int c = i < kLutCopied ? lut[i] : byte_class[i];
       lut[i] = ((unsigned)c < (unsigned)k1 ? c : dead) * kRowBytes;
     }
   }
   __syncthreads();
   if (!u.live) return;   // whole warp leaves; no block barrier follows
+  SCAN_CHECK_DO(check(u.row < B, kRowOutsideLaunch, u.row));
 
   const bool active = w < W;
   const size_t at = (size_t)u.row * W + w;
@@ -210,10 +233,12 @@ pair_scan_kernel(const void* __restrict__ tokens,
   for (int k = 0; k < nwin; ++k) {
     const int cnt = min(kWin, total - k * kWin);
     unsigned char* buf = raw + (k & 1) * kRaw;
-    bar_wait(wbar + (k & 1), (k >> 1) & 1);
+    SCAN_WINDOW_WAIT(wbar + (k & 1), k & 1, (k >> 1) & 1);
     const Tok* toks = reinterpret_cast<const Tok*>(
         buf + granules(src + k * kWin, cnt * sizeof(Tok)).head);
     for (int j = lane; j < cnt; j += 32) {
+      SCAN_CHECK_DO(check(toks[j] == src[k * kWin + j], kStaleToken, k);
+                    sh.write(j));
       if (kBytes) {
         staged[j] = (uint16_t)lut[toks[j]];
       } else {
@@ -222,19 +247,23 @@ pair_scan_kernel(const void* __restrict__ tokens,
                                kRowBytes);
       }
     }
-    __syncwarp();
+    SCAN_SYNCWARP();
     if (lane == 0 && k + 2 < nwin) {
+      SCAN_CHECK_DO(sh.issue(k & 1, true));
       proxy_fence();
-      fetch(buf, src + (k + 2) * kWin,
+      fetch(buf, kRaw, src + (k + 2) * kWin,
             min(kWin, total - (k + 2) * kWin) * (uint32_t)sizeof(Tok),
-            wbar + (k & 1));
+            tokens, span, wbar + (k & 1));
     }
+    SCAN_CHECK_DO(sh.chain());
     const uint16_t* off = staged;
     int steps = cnt;
     if (k == 0 && u.warm) {   // the halo: state only
+      SCAN_CHECK_DO(check(cnt >= kHalo, kShortHalo, cnt));
 #pragma unroll
       for (int j = 0; j < kHalo; j += 8) {
         uint32_t o[8];
+        SCAN_CHECK_DO(sh.read(j, 8));
         offsets8(off + j, o);
 #pragma unroll
         for (int i = 0; i < 8; i += 2) {
@@ -250,17 +279,22 @@ pair_scan_kernel(const void* __restrict__ tokens,
 #pragma unroll 2
     for (; j + 8 <= steps; j += 8) {
       uint32_t o[8];
+      SCAN_CHECK_DO(sh.read((int)(off - staged) + j, 8));
       offsets8(off + j, o);
 #pragma unroll
       for (int i = 0; i < 8; i += 2) pair(o[i], o[i + 1]);
     }
-    for (; j + 1 < steps; j += 2) pair(off[j], off[j + 1]);
+    for (; j + 1 < steps; j += 2) {
+      SCAN_CHECK_DO(sh.read((int)(off - staged) + j, 2));
+      pair(off[j], off[j + 1]);
+    }
     if (j < steps) {
       // odd length: the half pair's second byte is the dead class
+      SCAN_CHECK_DO(sh.read((int)(off - staged) + j, 1));
       M |= ((S << 1) | I) & (reach(column, off[j]) & F);
       S = 0u;
     }
-    __syncwarp();   // the next window overwrites the staged offsets
+    SCAN_SYNCWARP();   // the next window overwrites the staged offsets
   }
   if (active) {
     if (nseg == 1) {
@@ -309,7 +343,9 @@ int pair_scan_init() {
 }
 
 // tokens: uint8 (B, L) when byte_class is given (raw-byte configuration),
-// else int32 class ids (B, L).  byte_class: int32 (257,), 16-byte aligned;
+// else int32 class ids (B, L); 16-byte aligned and readable to the next
+// 16-byte boundary past its end (token_span: windows are copied as whole
+// 16-byte granules).  byte_class: int32 (257,), 16-byte aligned;
 // class_tiles: uint32 (ceil(W/32), k1, 32), 16-byte aligned, words past W
 // zero.  state_in / match_in may be null (zeros).  G: the segment length
 // (ops/segments.py): G >= L is one segment, else a multiple of 32 of at
@@ -350,5 +386,15 @@ int pair_scan_launch(const void* tokens, const void* lengths,
   return launch<false>(tokens, len, nullptr, ct, k1, im, fm, si, mi, mo, so,
                        B, L, W, G, nseg, (int)blocks, s);
 }
+
+#ifdef SCAN_CHECK
+// The checked build's failures since the last call: counts[16] gets
+// them by code (scan_common.cuh CheckCode), first[4] the first one's
+// code, blockIdx.x, blockIdx.y and detail; resets them.  Returns their
+// total, or -1 when a CUDA call fails.
+long long pair_scan_check_errors(unsigned long long* counts, int* first) {
+  return scan_common::check_errors(counts, first);
+}
+#endif
 
 }  // extern "C"

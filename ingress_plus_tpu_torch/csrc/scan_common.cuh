@@ -10,6 +10,28 @@
 // aligned 16-byte granules that contain it (never more than 15 bytes on
 // either side, and never across a page, since a granule lies inside one)
 // and read from its offset inside the copy.
+//
+// The checked build (-DSCAN_CHECK; chip_smoke.py phase 19) keeps the same
+// code and adds checks that count their failures, by code, in device
+// counters the host reads back (<kernel>_check_errors):
+//   * bounds: every bulk copy's source span lies inside the buffer it
+//     copies from, and inside its shared-memory slot; the token buffer is
+//     16-byte aligned; a live unit's row is a row of the launch; a later
+//     segment's first window holds its halo;
+//   * content: every token a warp stages equals the token in device memory;
+//   * ordering, on a shadow of each warp's buffers (Shadow): each lane
+//     counts the warp's __syncwarp()s (its epoch).  Two accesses by
+//     different lanes to one staged offset, one of them a write, in the
+//     same epoch are a race; so is a refill of a raw buffer in the epoch
+//     in which another lane read it; a window's wait must use the parity
+//     of the barrier's next phase and have a copy outstanding on it.  The
+//     shadow records which lane did what in which epoch, not what the
+//     timing happened to allow, so a missing __syncwarp or a wrong parity
+//     is found even where the warp ran in lockstep and the copy had
+//     already landed.
+// Not checked: the block-level hand-over of the class-table slice and the
+// LUT (one mbarrier phase, then __syncthreads), which every thread of the
+// block takes part in.
 
 #pragma once
 
@@ -17,6 +39,86 @@
 #include <stdint.h>
 
 namespace scan_common {
+
+// what a check of the checked build found (its first failure's code)
+enum CheckCode {
+  kCopyOutsideBuffer = 1,   // a bulk copy's span leaves its source buffer
+  kCopyOverSlot = 2,        // a window's copy overflows its shared slot
+  kStaleToken = 3,          // a staged token differs from device memory
+  kShortHalo = 4,           // a later segment's first window < its halo
+  kRowOutsideLaunch = 5,    // a live unit's row is not a row of the launch
+  kTokensMisaligned = 6,    // the token buffer is not 16-byte aligned
+  kRaceStaged = 7,          // staged offsets: detail 1 write after another
+                            // lane's write, 2 write after another lane's
+                            // read, 3 read of another lane's write, all
+                            // in one epoch; 4 read of an unwritten offset
+  kRaceRefill = 8,          // a refill and another lane's read of the
+                            // buffer in one epoch (detail: the buffer)
+  kBarrierParity = 9,       // a wait's parity is not its next phase's
+  kBarrierIdle = 10,        // a wait with no copy outstanding on it
+};
+
+// positions of a warp's staged window the shadow covers (the larger of
+// the two kernels' windows)
+constexpr int kShadowWin = 1024;
+
+#ifdef SCAN_CHECK
+// the code between the parentheses exists in the checked build only
+#define SCAN_CHECK_DO(...) __VA_ARGS__
+// in a kernel whose Shadow is `sh`: a warp barrier, which ends the lane's
+// epoch; and the wait of the b-th window barrier `bar` with `parity`
+#define SCAN_SYNCWARP() (__syncwarp(), sh.synced())
+#define SCAN_WINDOW_WAIT(bar, b, parity) sh.wait(bar, b, parity)
+
+// failures by code, and the first one's (code, blockIdx.x, blockIdx.y,
+// detail)
+constexpr int kCheckCodes = 16;
+__device__ unsigned long long check_counts[kCheckCodes];
+__device__ unsigned long long check_total;
+__device__ int check_first[4];
+
+__device__ inline void check(bool ok, int code, int detail) {
+  if (ok) return;
+  atomicAdd(&check_counts[code], 1ull);
+  if (atomicAdd(&check_total, 1ull) == 0) {
+    check_first[0] = code;
+    check_first[1] = (int)blockIdx.x;
+    check_first[2] = (int)blockIdx.y;
+    check_first[3] = detail;
+  }
+}
+
+// the failures so far: their count by code into counts[kCheckCodes], the
+// first one's details into first[4]; returns the total and resets all
+inline long long check_errors(unsigned long long* counts, int* first) {
+  unsigned long long n = 0;
+  const unsigned long long zeros[kCheckCodes] = {};
+  const int none[4] = {0, 0, 0, 0};
+  if (cudaMemcpyFromSymbol(&n, check_total, sizeof n) != cudaSuccess ||
+      cudaMemcpyFromSymbol(counts, check_counts, sizeof zeros) !=
+          cudaSuccess ||
+      cudaMemcpyFromSymbol(first, check_first, sizeof none) != cudaSuccess ||
+      cudaMemcpyToSymbol(check_total, zeros, sizeof n) != cudaSuccess ||
+      cudaMemcpyToSymbol(check_counts, zeros, sizeof zeros) != cudaSuccess ||
+      cudaMemcpyToSymbol(check_first, none, sizeof none) != cudaSuccess)
+    return -1;
+  return (long long)n;
+}
+
+#else
+// the shipping build: nothing between the parentheses exists
+#define SCAN_CHECK_DO(...)
+#define SCAN_SYNCWARP() __syncwarp()
+#define SCAN_WINDOW_WAIT(bar, b, parity) bar_wait(bar, parity)
+#endif
+
+// the span [p, p + bytes) lies inside [base, base + size)
+__device__ inline bool inside(const void* p, size_t bytes,
+                              const void* base, size_t size) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(base);
+  return a >= b && a + bytes <= b + size;
+}
 
 __device__ inline uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -88,13 +190,122 @@ __device__ inline Span granules(const void* p, uint32_t bytes) {
           uint32_t(a - lo)};
 }
 
-// announces and starts the copy of [p, p + bytes) into `dst`
-__device__ inline void fetch(void* dst, const void* p, uint32_t bytes,
+// announces and starts the copy of [p, p + bytes) into `dst`, a slot of
+// `slot` bytes; [p, p + bytes) lies in the buffer [base, base + size),
+// which the caller pads so that the granules around it do too
+__device__ inline void fetch(void* dst, uint32_t slot, const void* p,
+                             uint32_t bytes, const void* base, size_t size,
                              uint64_t* bar) {
   const Span s = granules(p, bytes);
+  SCAN_CHECK_DO(check(inside(s.start, s.size, base, size),
+                      kCopyOutsideBuffer, (int)bytes);
+                check(s.size <= slot, kCopyOverSlot, (int)s.size));
   bar_expect(bar, s.size);
   bulk_copy(dst, s.start, s.size, bar);
 }
+
+#ifdef SCAN_CHECK
+// One warp's shadow, in shared memory after the kernel's own: a read
+// record is (epoch << 32 | the lanes that read in that epoch).
+struct ShadowSlot {
+  unsigned long long staged_reads;   // the chain's reads of the offsets
+  unsigned long long raw_reads[2];   // the staging reads of each buffer
+  uint32_t issued[2];                // copies issued on each window barrier
+  uint32_t refilled[2];              // the epoch of each buffer's refill
+  uint32_t tag[kShadowWin];          // per offset: writer lane << 24 | epoch
+};
+
+// A lane's view of its warp's shadow: its epoch and its waits.
+struct Shadow {
+  ShadowSlot* s;
+  uint32_t lane, ep, waited[2];
+
+  __device__ Shadow(ShadowSlot* slot, int lane_)
+      : s(slot), lane((uint32_t)lane_), ep(1), waited{0, 0} {}
+
+  // zeroes the slot (the whole warp, before a block barrier)
+  __device__ void clear() {
+    for (int i = (int)lane; i < kShadowWin; i += 32) s->tag[i] = 0;
+    if (lane == 0) {
+      s->staged_reads = s->raw_reads[0] = s->raw_reads[1] = 0;
+      s->issued[0] = s->issued[1] = s->refilled[0] = s->refilled[1] = 0;
+    }
+  }
+
+  // after every __syncwarp() of the warp
+  __device__ void synced() { ++ep; }
+
+  // the lanes other than this one in a read record of this epoch
+  __device__ uint32_t others(const unsigned long long* rec) const {
+    const unsigned long long r = *(const volatile unsigned long long*)rec;
+    return (uint32_t)(r >> 32) == ep ? (uint32_t)r & ~(1u << lane) : 0u;
+  }
+
+  __device__ void mark(unsigned long long* rec) const {
+    unsigned long long old = *(volatile unsigned long long*)rec, was;
+    do {
+      was = old;
+      const uint32_t lanes = (uint32_t)(was >> 32) == ep ? (uint32_t)was : 0u;
+      old = atomicCAS(rec, was,
+                      (unsigned long long)ep << 32 | lanes | (1u << lane));
+    } while (old != was);
+  }
+
+  // this lane writes staged offset j
+  __device__ void write(int j) {
+    const uint32_t t = s->tag[j];
+    check(!(t && (t & 0xffffffu) == ep && (t >> 24) != lane), kRaceStaged,
+          1);
+    check(!others(&s->staged_reads), kRaceStaged, 2);
+    s->tag[j] = lane << 24 | ep;
+  }
+
+  // this lane starts the chain's reads of the staged offsets
+  __device__ void chain() { mark(&s->staged_reads); }
+
+  // this lane reads staged offsets [j, j + n)
+  __device__ void read(int j, int n) const {
+    for (int i = j; i < j + n; ++i) {
+      const uint32_t t = s->tag[i];
+      check(t != 0, kRaceStaged, 4);
+      check(!((t & 0xffffffu) == ep && (t >> 24) != lane), kRaceStaged, 3);
+    }
+  }
+
+  // lane 0 starts a copy into raw buffer b; `refill`: over a window the
+  // warp has read, which must not be in an epoch another lane read it in
+  // (checked here, and by each reader after the fact: a lane may still be
+  // in its wait when lane 0 gets here)
+  __device__ void issue(int b, bool refill) {
+    if (refill) {
+      check(!others(&s->raw_reads[b]), kRaceRefill, b);
+      *(volatile uint32_t*)&s->refilled[b] = ep;
+    }
+    ++s->issued[b];
+  }
+
+  // this lane waits on the b-th window barrier `bar` with `parity`, then
+  // reads the buffer (staging).  A parity other than the next phase's, or
+  // a wait with no copy outstanding, is counted; the wait then takes the
+  // next phase's parity, or is skipped, so that the kernel ends (either
+  // would hang it) and the count can be read.
+  __device__ void wait(uint64_t* bar, int b, uint32_t parity) {
+    const uint32_t next = waited[b] & 1u;
+    check(parity == next, kBarrierParity, (int)waited[b]);
+    const bool idle = *(const volatile uint32_t*)&s->issued[b] <= waited[b];
+    check(!idle, kBarrierIdle, (int)waited[b]);
+    if (!idle) bar_wait(bar, next);
+    ++waited[b];
+    mark(&s->raw_reads[b]);
+    check(lane == 0 || *(const volatile uint32_t*)&s->refilled[b] != ep,
+          kRaceRefill, b);
+  }
+};
+
+constexpr size_t kShadowBytes = sizeof(ShadowSlot);
+#else
+constexpr size_t kShadowBytes = 0;
+#endif
 
 // One warp's unit: row `row`, segment `seg` of `G` positions.  It scans
 // positions [from, end) of its row; the first `warm` of them (the halo,
@@ -149,6 +360,13 @@ __device__ inline void offsets8(const uint16_t* p, uint32_t (&o)[8]) {
     o[2 * i] = w[i] & 0xffffu;
     o[2 * i + 1] = w[i] >> 16;
   }
+}
+
+// The token buffer's bytes a launch may copy: B * L tokens of `tok` bytes,
+// to the next 16-byte boundary (the caller's buffer is 16-byte aligned and
+// readable that far: ops/cuda_build.py pads a buffer that is not)
+__device__ inline size_t token_span(int B, int L, size_t tok) {
+  return ((size_t)B * L * tok + 15) & ~size_t(15);
 }
 
 }  // namespace scan_common

@@ -54,8 +54,10 @@
 //     32-word slice is one contiguous span, laid out [class][lane] so a
 //     warp's 32 reads of one class row hit 32 distinct banks; no index
 //     arithmetic or divide per element.  One thread starts the copies of
-//     that slice and of the 257-entry LUT (cp.async.bulk, completing on a
-//     block mbarrier) while every warp's lane 0 starts the copies of its
+//     that slice and of the LUT's first 256 entries (cp.async.bulk,
+//     completing on a block mbarrier; a bulk copy moves a multiple of 16
+//     bytes, and the 257 entries are 1028, so the dead index's entry is
+//     read on its own) while every warp's lane 0 starts the copies of its
 //     unit's first two byte windows (on the warp's own two mbarriers): all
 //     in flight together.  The LUT is then rewritten once into the byte
 //     offsets of class rows (class * 128).  Each window is applied through
@@ -102,7 +104,10 @@ constexpr int kHalo = 32;            // warm-up bytes before a later segment
 constexpr int kWin = 1024;           // bytes staged per window
 constexpr int kRawBytes = kWin + 32; // a window's aligned copy, with slack
 constexpr int kLutEntries = 257;     // 256 bytes + the dead index
-constexpr int kLutBytes = 1040;      // the LUT's copy, rounded up to 16 B
+constexpr int kLutBytes = 1040;      // the LUT's shared slot, 16 B multiple
+constexpr int kLutCopied = 256;      // entries bulk-copied (1024 B); the
+                                     // dead index is read on its own, so
+                                     // no copy reads past the 257 entries
 constexpr int kMaxK1 = 257;          // the raw byte table + the dead class
 
 __host__ __device__ inline size_t table_bytes(int k1) {
@@ -112,7 +117,8 @@ __host__ __device__ inline size_t table_bytes(int k1) {
 __host__ __device__ inline size_t smem_bytes(int k1) {
   return table_bytes(k1) + kLutBytes +
          kUnitsPerBlock * (2 * kRawBytes + kWin * sizeof(uint16_t)) +
-         (1 + 2 * kUnitsPerBlock) * sizeof(uint64_t);
+         (1 + 2 * kUnitsPerBlock) * sizeof(uint64_t) +
+         kUnitsPerBlock * kShadowBytes;
 }
 
 __global__ void __launch_bounds__(kUnitsPerBlock * 32, 4)
@@ -144,6 +150,9 @@ step_scan_kernel(const uint8_t* __restrict__ tokens,
   unsigned char* raw = raw_all + warp * 2 * kRawBytes;
   uint16_t* staged = staged_all + warp * kWin;
   uint64_t* wbar = bars + 1 + 2 * warp;   // this warp's two windows
+  SCAN_CHECK_DO(Shadow sh(reinterpret_cast<ShadowSlot*>(
+                              bars + 1 + 2 * kUnitsPerBlock) + warp, lane);
+                sh.clear());
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 1 + 2 * kUnitsPerBlock; ++i) bar_init(bars + i, 1);
@@ -152,28 +161,40 @@ step_scan_kernel(const uint8_t* __restrict__ tokens,
   if (!__syncthreads_or(u.live)) return;   // every unit past its row's end
 
   const uint8_t* src = tokens + (size_t)u.row * L + u.from;
+  const size_t span = token_span(B, L, 1);
   const int total = u.end - u.from;
   const int nwin = (total + kWin - 1) / kWin;
   if (threadIdx.x == 0) {
-    bar_expect(bars, (uint32_t)(table_bytes(k1) + kLutBytes));
-    bulk_copy(tbl, class_tiles + (size_t)blockIdx.x * k1 * kWordsPerBlock,
-              (uint32_t)table_bytes(k1), bars);
-    bulk_copy(lut, byte_class, kLutBytes, bars);
+    const uint32_t* slice = class_tiles + (size_t)blockIdx.x * k1 *
+                                              kWordsPerBlock;
+    SCAN_CHECK_DO(
+        check(((uintptr_t)tokens & 15) == 0, kTokensMisaligned, 0);
+        check(inside(slice, table_bytes(k1), class_tiles,
+                     gridDim.x * table_bytes(k1)),
+              kCopyOutsideBuffer, -1);
+        check(inside(byte_class, kLutCopied * sizeof(int), byte_class,
+                     kLutEntries * sizeof(int)),
+              kCopyOutsideBuffer, -2));
+    bar_expect(bars, (uint32_t)(table_bytes(k1) + kLutCopied * sizeof(int)));
+    bulk_copy(tbl, slice, (uint32_t)table_bytes(k1), bars);
+    bulk_copy(lut, byte_class, kLutCopied * sizeof(int), bars);
   }
   if (lane == 0) {
     for (int k = 0; k < 2 && k < nwin; ++k) {
-      fetch(raw + k * kRawBytes, src + k * kWin, min(kWin, total - k * kWin),
-            wbar + k);
+      SCAN_CHECK_DO(sh.issue(k, false));
+      fetch(raw + k * kRawBytes, kRawBytes, src + k * kWin,
+            min(kWin, total - k * kWin), tokens, span, wbar + k);
     }
   }
   bar_wait(bars, 0);
   // byte -> byte offset of its class row; ids outside [0, k1) read as dead
   for (int i = threadIdx.x; i < kLutEntries; i += blockDim.x) {
-    const int c = lut[i];
+    const int c = i < kLutCopied ? lut[i] : byte_class[i];
     lut[i] = ((unsigned)c < (unsigned)k1 ? c : k1 - 1) * kRowBytes;
   }
   __syncthreads();
   if (!u.live) return;   // whole warp leaves; no block barrier follows
+  SCAN_CHECK_DO(check(u.row < B, kRowOutsideLaunch, u.row));
 
   const bool active = w < W;
   const size_t at = (size_t)u.row * W + w;
@@ -187,22 +208,30 @@ step_scan_kernel(const uint8_t* __restrict__ tokens,
   for (int k = 0; k < nwin; ++k) {
     const int cnt = min(kWin, total - k * kWin);
     unsigned char* buf = raw + (k & 1) * kRawBytes;
-    bar_wait(wbar + (k & 1), (k >> 1) & 1);
+    SCAN_WINDOW_WAIT(wbar + (k & 1), k & 1, (k >> 1) & 1);
     const unsigned char* bytes =
         buf + granules(src + k * kWin, cnt).head;
-    for (int j = lane; j < cnt; j += 32) staged[j] = (uint16_t)lut[bytes[j]];
-    __syncwarp();
-    if (lane == 0 && k + 2 < nwin) {
-      proxy_fence();
-      fetch(buf, src + (k + 2) * kWin, min(kWin, total - (k + 2) * kWin),
-            wbar + (k & 1));
+    for (int j = lane; j < cnt; j += 32) {
+      SCAN_CHECK_DO(check(bytes[j] == src[k * kWin + j], kStaleToken, k);
+                    sh.write(j));
+      staged[j] = (uint16_t)lut[bytes[j]];
     }
+    SCAN_SYNCWARP();
+    if (lane == 0 && k + 2 < nwin) {
+      SCAN_CHECK_DO(sh.issue(k & 1, true));
+      proxy_fence();
+      fetch(buf, kRawBytes, src + (k + 2) * kWin,
+            min(kWin, total - (k + 2) * kWin), tokens, span, wbar + (k & 1));
+    }
+    SCAN_CHECK_DO(sh.chain());
     const uint16_t* off = staged;
     int steps = cnt;
     if (k == 0 && u.warm) {   // the halo: state only
+      SCAN_CHECK_DO(check(cnt >= kHalo, kShortHalo, cnt));
 #pragma unroll
       for (int j = 0; j < kHalo; j += 8) {
         uint32_t o[8];
+        SCAN_CHECK_DO(sh.read(j, 8));
         offsets8(off + j, o);
 #pragma unroll
         for (int i = 0; i < 8; ++i) S = ((S << 1) | I) & reach(column, o[i]);
@@ -214,6 +243,7 @@ step_scan_kernel(const uint8_t* __restrict__ tokens,
 #pragma unroll 2
     for (; j + 8 <= steps; j += 8) {
       uint32_t o[8];
+      SCAN_CHECK_DO(sh.read((int)(off - staged) + j, 8));
       offsets8(off + j, o);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -222,10 +252,11 @@ step_scan_kernel(const uint8_t* __restrict__ tokens,
       }
     }
     for (; j < steps; ++j) {
+      SCAN_CHECK_DO(sh.read((int)(off - staged) + j, 1));
       S = ((S << 1) | I) & reach(column, off[j]);
       M |= S & F;
     }
-    __syncwarp();   // the next window overwrites the staged offsets
+    SCAN_SYNCWARP();   // the next window overwrites the staged offsets
   }
   if (active) {
     if (nseg == 1) {
@@ -253,7 +284,9 @@ int step_scan_init() {
       (int)smem_bytes(kMaxK1));
 }
 
-// tokens: uint8 (B, L); lengths: int32 (B,); byte_class: int32 (257,),
+// tokens: uint8 (B, L), 16-byte aligned and readable to the next 16-byte
+// boundary past its end (token_span: windows are copied as whole 16-byte
+// granules); lengths: int32 (B,); byte_class: int32 (257,),
 // 16-byte aligned; class_tiles: uint32 (ceil(W/32), k1, 32), 16-byte
 // aligned, words past W zero; init/final: uint32 (W,); state_in /
 // match_in: uint32 (B, W) or null (zeros); outputs uint32 (B, W).  G: the
@@ -295,5 +328,15 @@ int step_scan_launch(const void* tokens, const void* lengths,
       B, L, W, G, nseg);
   return (int)cudaGetLastError();
 }
+
+#ifdef SCAN_CHECK
+// The checked build's failures since the last call: counts[16] gets
+// them by code (scan_common.cuh CheckCode), first[4] the first one's
+// code, blockIdx.x, blockIdx.y and detail; resets them.  Returns their
+// total, or -1 when a CUDA call fails.
+long long step_scan_check_errors(unsigned long long* counts, int* first) {
+  return scan_common::check_errors(counts, first);
+}
+#endif
 
 }  // extern "C"

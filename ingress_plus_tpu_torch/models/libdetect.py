@@ -27,6 +27,12 @@ microseconds, and a thread that releases the lock that often waits to
 take it back behind every busy Python thread of the process (the serve
 plane's loop, lane and exporter threads).
 
+:func:`run_sanitized` runs the twin under ASan and UBSan: linked with
+the runner ``csrc/libdetect_check.cc`` into one executable (built at
+first use, with ``native/sidecar/Makefile``'s ``SAN_ASAN`` flags), in a
+process of its own, since a sanitized library would need the
+sanitizer's runtime preloaded into Python.
+
 One difference from the JAX package, on purpose: there, a missing or
 unloadable library falls back to Python in silence.  Here a failed build
 or load raises, with the compiler's output, unless
@@ -51,9 +57,19 @@ from __future__ import annotations
 import ctypes
 import os
 import re
-from typing import List, Tuple
+import struct
+import subprocess
+import tempfile
+from typing import Iterable, List, Tuple
 
-from ingress_plus_tpu_torch.ops.cuda_build import CSRC, GXX_FLAGS, KernelLibrary
+from ingress_plus_tpu_torch.ops.cuda_build import (
+    CSRC,
+    GXX_FLAGS,
+    SAN_ASAN,
+    SAN_CXXFLAGS,
+    KernelLibrary,
+    build_program,
+)
 
 # ------------------------------------------------------------------ SQLi
 
@@ -316,3 +332,36 @@ def detect_xss(data: bytes, max_len: int = 4096) -> bool:
     if lib is not None and b"\x00" not in window:
         return bool(lib.ipt_detect_xss(window, len(window)))
     return detect_xss_py(data, max_len)
+
+
+# ------------------------------------------- the twin under ASan + UBSan
+
+#: UBSan stops at its first report (ASan always does), so a report also
+#: fails the exit code
+SANITIZER_ENV = {"UBSAN_OPTIONS": "print_stacktrace=1:halt_on_error=1"}
+
+
+def sanitized_binary():
+    """The twin and its runner linked into one ASan + UBSan executable
+    (built once per source hash into the port's build directory)."""
+    return build_program([CSRC / "libdetect_check.cc", CSRC / "libdetect.cc"],
+                         SAN_CXXFLAGS + SAN_ASAN)
+
+
+def run_sanitized(strings: Iterable[bytes], timeout: float = 300.0
+                  ) -> Tuple[List[Tuple[bool, bool]], str, int]:
+    """Each of ``strings`` (NULs and all, any length) through the
+    sanitized twin: ([(sqli, xss)] per string as far as the runner got,
+    its stderr, its exit code).  The caller reads the sanitizer reports
+    off stderr."""
+    binary = sanitized_binary()
+    with tempfile.NamedTemporaryFile(suffix=".bin") as f:
+        for data in strings:
+            f.write(struct.pack("<I", len(data)) + data)
+        f.flush()
+        proc = subprocess.run([str(binary), f.name], capture_output=True,
+                              timeout=timeout,
+                              env={**os.environ, **SANITIZER_ENV})
+    bits = [(line[:1] == b"1", line[1:2] == b"1")
+            for line in proc.stdout.splitlines()]
+    return bits, proc.stderr.decode(errors="replace"), proc.returncode

@@ -36,8 +36,14 @@ from ingress_plus_tpu_torch.ops.segments import WORD_TILE, plan_segments
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
+#: ``-lineinfo`` maps SASS to source lines for compute-sanitizer's reports
+#: and changes no instruction (``chip_smoke.py`` phase 19 compares both
+#: kernels' SASS with and without it)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC")
+#: the checked build of the scan kernels (``csrc/scan_common.cuh``):
+#: bounds, copy-content and warp-ordering checks counted on the card
+CHECK_FLAGS = NVCC_FLAGS + ("-DSCAN_CHECK",)
 #: host code: the flags of the JAX package's native/confirm/Makefile
 GXX_FLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared")
 
@@ -54,6 +60,28 @@ def find_nvcc() -> str:
         raise RuntimeError("nvcc not found: the port's kernels are built "
                            "from ingress_plus_tpu_torch/csrc at first use")
     return nvcc
+
+
+def find_compute_sanitizer() -> str:
+    """The path of ``compute-sanitizer``: beside nvcc, under
+    ``CUDA_HOME/bin`` or ``CUDA_HOME/extras/compute-sanitizer``, else on
+    ``PATH``.  Raises RuntimeError when none is found."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    homes = [Path(CUDA_HOME)] if CUDA_HOME else []
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        homes.append(Path(nvcc).resolve().parent.parent)
+    for home in homes:
+        for sub in ("bin", "extras/compute-sanitizer"):
+            cand = home / sub / "compute-sanitizer"
+            if cand.exists():
+                return str(cand)
+    found = shutil.which("compute-sanitizer")
+    if found is None:
+        raise RuntimeError("compute-sanitizer not found under %s or on PATH"
+                           % (", ".join(map(str, homes)) or "no CUDA_HOME"))
+    return found
 
 
 def find_compiler(name: str) -> str:
@@ -77,26 +105,45 @@ def build_library(source: Path, verbose: bool = False,
     failed build raises RuntimeError with the compiler's output."""
     headers = sorted(source.parent.glob("*.cuh")) if source.suffix == ".cu" \
         else []
-    src = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
+    extra = ["-Xptxas", "-v"] if verbose and compiler == "nvcc" else []
+    return _compile([source], headers, "lib%s_{}.so" % source.stem, compiler,
+                    flags, extra, verbose)
+
+
+def build_program(sources: Sequence[Path], flags: Sequence[str],
+                  compiler: str = "g++") -> Path:
+    """Compile and link ``sources`` into one executable with ``compiler``
+    and ``flags``, once per hash of the sources, compiler and flags, into
+    :data:`BUILD_DIR` (named after the first source); returns its path.
+    A failed build raises RuntimeError with the compiler's output."""
+    return _compile(list(sources), [], "%s_{}" % sources[0].stem, compiler,
+                    flags, [], False)
+
+
+def _compile(sources: Sequence[Path], headers: Sequence[Path], name: str,
+             compiler: str, flags: Sequence[str], extra: Sequence[str],
+             force: bool) -> Path:
+    """``compiler flags extra -o BUILD_DIR/name sources``, ``name``'s
+    ``{}`` the key of the sources, the headers, the compiler and the
+    flags; skipped when that file exists unless ``force``."""
+    src = b"".join(p.read_bytes() for p in (*sources, *headers))
     tag = hashlib.sha256(
         src + " ".join((compiler, *flags)).encode()).hexdigest()
-    out = BUILD_DIR / ("lib%s_%s.so" % (source.stem, tag[:16]))
-    if out.exists() and not verbose:
+    out = BUILD_DIR / name.format(tag[:16])
+    if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [find_compiler(compiler), *flags]
-    if verbose and compiler == "nvcc":
-        cmd += ["-Xptxas", "-v"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=out.suffix, dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(cmd + ["-o", tmp, str(source)],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [find_compiler(compiler), *flags, *extra, "-o", tmp,
+             *map(str, sources)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError("%s failed on %s:\n%s%s"
-                               % (compiler, source.name, proc.stdout,
-                                  proc.stderr))
-        if verbose:
+                               % (compiler, ", ".join(p.name for p in sources),
+                                  proc.stdout, proc.stderr))
+        if force:
             print(proc.stdout + proc.stderr, end="", flush=True)
         os.replace(tmp, out)   # atomic: concurrent builds both succeed
     finally:
@@ -114,12 +161,24 @@ NATIVE_BUILD = BUILD_DIR / "native"
 NATIVE_CXXFLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra")
 NATIVE_CFLAGS = ("-O2", "-std=c11", "-Wall", "-Wextra", "-Werror",
                  "-Inginx_compat")
+#: ``native/sidecar/Makefile``'s sanitizer tiers: ``SAN_ASAN`` (ASan and
+#: UBSan) and ``SAN_TSAN``, after the flags its sanitizer rules spell
+SAN_ASAN = ("-fsanitize=address,undefined", "-fno-omit-frame-pointer", "-g",
+            "-O1")
+SAN_TSAN = ("-fsanitize=thread", "-fno-omit-frame-pointer", "-g", "-O1")
+SAN_CXXFLAGS = ("-std=c++17", "-Wall", "-Wextra")
 #: each Makefile target: (directory under native/, compiler, flags,
 #: inputs in that directory or earlier targets, extra trailing args);
 #: ``-c`` targets are objects, in the order they must be built
 NATIVE_TARGETS = {
     "sidecar": ("sidecar", "g++", NATIVE_CXXFLAGS, ("sidecar.cc",), ()),
     "loadgen": ("sidecar", "g++", NATIVE_CXXFLAGS, ("loadgen.cc",), ()),
+    "sidecar_asan": ("sidecar", "g++", SAN_CXXFLAGS + SAN_ASAN,
+                     ("sidecar.cc",), ()),
+    "loadgen_asan": ("sidecar", "g++", SAN_CXXFLAGS + SAN_ASAN,
+                     ("loadgen.cc",), ()),
+    "sidecar_tsan": ("sidecar", "g++", SAN_CXXFLAGS + SAN_TSAN,
+                     ("sidecar.cc",), ()),
     "shim_selftest": ("shim", "g++", NATIVE_CXXFLAGS,
                       ("shim_selftest.cc", "shim_bridge.cc"), ()),
     "ngx_http_detect_tpu_module.o": (
@@ -138,6 +197,8 @@ NATIVE_TARGETS = {
 NATIVE_DEPS = {"shim_harness": ("ngx_http_detect_tpu_module.o",
                                 "ngx_test_double.o", "shim_harness.o")}
 NATIVE_BINARIES = ("sidecar", "loadgen", "shim_selftest", "shim_harness")
+#: the sanitizer builds (``make asan tsan``), built only when asked for
+SANITIZER_BINARIES = ("sidecar_asan", "loadgen_asan", "sidecar_tsan")
 
 
 def native_dir(root: Path = NATIVE) -> Path:
@@ -160,7 +221,8 @@ def native_dir(root: Path = NATIVE) -> Path:
 def build_native(targets: Sequence[str] = NATIVE_BINARIES,
                  root: Path = NATIVE, force: bool = False) -> Dict[str, Path]:
     """Build the front door's binaries (``sidecar``, ``loadgen``,
-    ``shim_selftest``, ``shim_harness``; objects by name too) from
+    ``shim_selftest``, ``shim_harness``; the :data:`SANITIZER_BINARIES`
+    and objects by name too) from
     ``root``'s sources with the Makefiles' compilers and flags, into
     :func:`native_dir` (once per key; ``force`` rebuilds).  Each target is
     compiled in a private temporary directory and moved into place with
@@ -287,6 +349,22 @@ def tile_class_table(class_table: torch.Tensor) -> torch.Tensor:
     return padded.view(K1, tiles, WORD_TILE).permute(1, 0, 2).contiguous()
 
 
+def granule_padded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) when it is 16-byte aligned and its storage
+    reaches the 16-byte boundary past its last byte, else a copy of it at
+    the start of a fresh zero-filled buffer that does: a scan kernel
+    copies each token window as the whole 16-byte granules around it."""
+    nbytes = t.numel() * t.element_size()
+    need = -(-nbytes // 16) * 16
+    st = t.untyped_storage()
+    if (t.data_ptr() % 16 == 0
+            and st.data_ptr() + st.nbytes() - t.data_ptr() >= need):
+        return t
+    buf = torch.zeros(need, dtype=torch.uint8, device=t.device)
+    buf[:nbytes].copy_(t.reshape(-1).view(torch.uint8))
+    return buf[:nbytes].view(t.dtype).view(t.shape)
+
+
 def device_words(x: Optional[torch.Tensor],
                  dev: torch.device) -> Optional[torch.Tensor]:
     """Optional (B, W) words as a contiguous int32 tensor on ``dev``."""
@@ -334,9 +412,12 @@ class ScanKernel:
     ``<name>_max_k1()`` and the per-device setup ``<name>_init()``.  ``G``
     is the segment length of :func:`ops.segments.plan_segments`.
     ``class_ids`` says whether the kernel also takes int32 class ids in
-    place of uint8 bytes and a ``byte_class`` LUT."""
+    place of uint8 bytes and a ``byte_class`` LUT.  ``flags`` are nvcc's;
+    :data:`CHECK_FLAGS` gives the checked build, whose failures
+    :meth:`check_errors` reads."""
 
-    def __init__(self, name: str, class_ids: bool):
+    def __init__(self, name: str, class_ids: bool,
+                 flags: Sequence[str] = NVCC_FLAGS):
         self.name = name
         self.class_ids = class_ids
         self.launches = 0
@@ -346,16 +427,35 @@ class ScanKernel:
         self._shapes: Dict[tuple, list] = {}
         self._shapes_lock = threading.Lock()
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        self.lib = KernelLibrary(CSRC / (name + ".cu"), {
+        prototypes = {
             name + "_launch": ([vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
                                 ci, ci, ci, ci, vp], ci),
             name + "_max_k1": ([], ci),
-        }, init=name + "_init")
+        }
+        if "-DSCAN_CHECK" in flags:
+            prototypes[name + "_check_errors"] = ([vp, vp],
+                                                  ctypes.c_longlong)
+        self.lib = KernelLibrary(CSRC / (name + ".cu"), prototypes,
+                                 init=name + "_init", flags=flags)
 
     def library(self, dev: Optional[torch.device] = None):
         """The loaded library, built at first use; with ``dev``, also
         set the kernel's shared-memory limit on that card (once)."""
         return self.lib.load(dev)
+
+    def check_errors(self) -> dict:
+        """The checked build's failures since the last call: ``total``,
+        ``by_code`` (code -> count; codes are ``CheckCode`` in
+        ``csrc/scan_common.cuh``) and ``first`` ([code, blockIdx.x,
+        blockIdx.y, detail] of the first); resets them."""
+        counts, first = (ctypes.c_ulonglong * 16)(), (ctypes.c_int * 4)()
+        n = getattr(self.library(), self.name + "_check_errors")(counts,
+                                                                 first)
+        if n < 0:
+            raise RuntimeError("%s: reading the check counters failed"
+                               % self.name)
+        return {"total": n, "first": list(first),
+                "by_code": {c: int(v) for c, v in enumerate(counts) if v}}
 
     def _tally(self, B: int, L: int, carried: bool,
                host: Optional[torch.Tensor]) -> None:
@@ -438,6 +538,7 @@ class ScanKernel:
         if match is not None:
             want["match"] = (match, torch.int32, (B, W))
         check_tensors(dev, want)
+        tokens = granule_padded(tokens)
         for name in ("class_tiles", "byte_class"):   # bulk-copied whole
             t = want.get(name, (None,))[0]
             if t is not None and t.data_ptr() % 16:

@@ -98,7 +98,10 @@ class PairScanner:
 
 def _plain(t: ScanTables, tokens, lengths, state, match):
     """The kernel's plain version on CPU tensors; an odd L gains one
-    padding column, which lies past every row's length (dead class)."""
-    if tokens.shape[1] % 2:
+    padding column, which lies past every row's length (dead class):
+    lengths are clamped to L first, as the kernel clamps them."""
+    L = tokens.shape[1]
+    if L % 2:
         tokens = torch.nn.functional.pad(tokens, (0, 1))
+        lengths = lengths.clamp(max=L)
     return scan_pairs(t, tokens, lengths, state, match)
