@@ -29,13 +29,15 @@ build or load failure raises from the constructor.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
 from ingress_plus_tpu_torch.compiler.seclang import CLASSES
+from ingress_plus_tpu_torch.ops.cuda_build import AUTOSELECT_SCOPE, launch_scope
 from ingress_plus_tpu_torch.ops.pair_scan import (
     PAIR_SCAN,
     ByteScanner,
@@ -237,6 +239,25 @@ class EngineTables:
         return out
 
 
+@contextmanager
+def bake_off_threads(device: torch.device) -> Iterator[None]:
+    """The intra-op threads of a startup bake-off: one on a CPU device
+    (restored after), the card's own otherwise.  Several processes that
+    each time the plain scans at B=512 on every core of a shared host
+    stall one another for minutes (torch's thread pool meets a barrier
+    at every op of the 256 scan steps), while on one thread the plain
+    scans rank as they do on many (``pair`` ahead of ``take``)."""
+    if device.type != "cpu":
+        yield
+        return
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
+
+
 def _segment_max(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """Per-segment max of non-negative rows; empty segments read 0.
     (The JAX reference fills them with -inf, which every later ``> 0``
@@ -386,21 +407,26 @@ class DetectionEngine:
             self._device_tables[device] = pair
         return pair
 
-    def _kernel_scanner_cls(self):
-        """The live impl's kernel scanner class; None for a plain scan
-        (``pair``, and ``take`` on a CPU device)."""
-        if self.scan_impl == "take":
+    def _kernel_scanner_cls(self, impl: Optional[str] = None):
+        """The kernel scanner class of ``impl`` (default: the live
+        impl); None for a plain scan (``pair``, and ``take`` on a CPU
+        device)."""
+        impl = self.scan_impl if impl is None else impl
+        if impl == "take":
             return StepScanner if self.device.type == "cuda" else None
-        return KERNEL_SCANNERS.get(self.scan_impl)
+        return KERNEL_SCANNERS.get(impl)
 
-    def scanner_for(self, device: Optional[torch.device] = None):
-        """The live impl's kernel scanner on ``device`` (built once per
-        impl, card and generation); None for a plain scan."""
-        cls = self._kernel_scanner_cls()
+    def scanner_for(self, device: Optional[torch.device] = None,
+                    impl: Optional[str] = None):
+        """The kernel scanner of ``impl`` (default: the live impl) on
+        ``device`` (built once per impl, card and generation); None for
+        a plain scan."""
+        impl = self.scan_impl if impl is None else impl
+        cls = self._kernel_scanner_cls(impl)
         if cls is None:
             return None
         dev = self.device if device is None else torch.device(device)
-        key = (self.scan_impl, dev)
+        key = (impl, dev)
         sc = self._scanners.get(key)
         if sc is None:
             sc = self._scanners[key] = cls(self.tables_for(dev)[0].scan)
@@ -543,3 +569,99 @@ class DetectionEngine:
             self._to_dev(np.concatenate(rrs), dev),
             self._to_dev(np.concatenate(rss), dev), num_requests)
         return rule_hits.cpu().numpy()
+
+    # ------------------------------------------------- impl auto-select
+
+    def autoselect_scan_impl(self, B: int = 512, L: int = 256, k: int = 17,
+                             n: int = 2,
+                             include_pallas: Optional[bool] = None
+                             ) -> Dict[str, float]:
+        """Time each scan implementation that can run on this engine's
+        device at one representative shape, install the fastest, and
+        return ``{impl: seconds per pass}`` (``--scan-impl auto``: the
+        server's startup bake-off).  Detection output is the same under
+        every impl, so the choice is about speed alone.
+
+        Candidates: ``pair`` and ``take`` on a CPU device; ``take``,
+        ``pallas``, ``pallas2`` and ``pallas3`` on a card
+        (``include_pallas``, default: the device is ``cuda``, adds the
+        three kernel impls; on a CPU device they raise ``ValueError``,
+        as :meth:`check_impl` does).  Inputs: ``B`` rows of ``L`` seeded
+        printable bytes (``default_rng(7)``), every row full, row ``i``
+        owned by request ``i % 8``, every stream-variant set.  Each
+        candidate chains ``k`` passes of its scan (through
+        :meth:`scanner_for` or the plain scan, the lengths on the host as
+        a serving dispatch passes them) and :func:`map_match_words`: the
+        sticky match carries from pass to pass, and the state too for the
+        per-byte impls (``pallas``, ``take``).  Every impl takes the same
+        uint8 rows: seeded printable bytes are a raw request row
+        (``pallas3``'s contract) as well as a prepared one.  Timing:
+        ``utils/microbench.k_diff_time`` on the engine's device (CUDA
+        events on a card; one torch thread on a CPU device,
+        :func:`bake_off_threads`), the steady cost of one pass.  A time
+        <= 0 is no signal and reads ``inf``; when every candidate reads
+        ``inf`` the configured impl stays.  The kernels' launches are tallied
+        under ``launch_scope(AUTOSELECT_SCOPE)``, so the serving cycles'
+        per-shape tally stays their own.
+
+        One departure from the JAX package: a candidate that raises is
+        not turned into ``inf``.  On a card that would serve another impl
+        when a kernel fails to build or launch, so the error propagates
+        (the server then does not start), as in :func:`load_kernels`."""
+        from ingress_plus_tpu_torch.utils.microbench import k_diff_time
+
+        if include_pallas is None:
+            include_pallas = self.device.type == "cuda"
+        candidates = (["pair"] if self.device.type == "cpu" else []) + [
+            "take"] + (["pallas", "pallas2", "pallas3"]
+                       if include_pallas else [])
+        for impl in candidates:
+            self.check_impl(impl, self.device)
+        dev, tables = self.device, self.tables
+        rng = np.random.default_rng(7)
+        tokens = torch.from_numpy(
+            rng.integers(32, 127, (B, L)).astype(np.uint8)).to(dev)
+        lengths = torch.full((B,), L, dtype=torch.int32)
+        row_req = torch.from_numpy(
+            (np.arange(B) % 8).astype(np.int32)).to(dev)
+        row_sv = torch.ones((B, tables.rule_sv.shape[1]), dtype=torch.int8,
+                            device=dev)
+        W = tables.scan.n_words
+
+        def chain(impl: str):
+            scanner = self.scanner_for(impl=impl)
+            carry_state = impl in ("pallas", "take")
+
+            def scan(state, match):
+                if scanner is not None:
+                    return scanner(tokens, lengths,
+                                   state if carry_state else None, match)
+                if impl == "take":
+                    return scan_bytes(tables.scan, tokens, lengths.to(dev),
+                                      state, match)
+                return scan_pairs(tables.scan, tokens, lengths.to(dev),
+                                  None, match)
+
+            def call(kk: int, rep: int) -> torch.Tensor:
+                acc = torch.zeros((), dtype=torch.int64, device=dev)
+                state = match = torch.zeros((B, W), dtype=torch.int32,
+                                            device=dev)
+                for _ in range(kk):
+                    match, new_state = scan(state, match)
+                    if carry_state:
+                        state = new_state
+                    rule_hits, _, _ = map_match_words(tables, match, row_req,
+                                                      row_sv, 8)
+                    acc = acc + match.sum() + rule_hits.sum()
+                return acc
+            return call
+
+        timings: Dict[str, float] = {}
+        with launch_scope(AUTOSELECT_SCOPE), bake_off_threads(dev):
+            for impl in candidates:
+                dt = k_diff_time(chain(impl), k, n=n, device=dev)
+                timings[impl] = dt if dt > 0 else float("inf")
+        best = min(timings, key=timings.get)
+        if timings[best] < float("inf"):
+            self.scan_impl = best
+        return timings

@@ -379,6 +379,9 @@ _scope = threading.local()
 SERVE_SCOPE = "serve"
 #: the guarded rollout's admission and shadow work (control/rollout.py)
 ROLLOUT_SCOPE = "rollout"
+#: the startup bake-off of ``--scan-impl auto``
+#: (``DetectionEngine.autoselect_scan_impl``, ``ShardedEngine``'s)
+AUTOSELECT_SCOPE = "autoselect"
 
 
 def current_scope() -> str:
@@ -390,9 +393,9 @@ def current_scope() -> str:
 def launch_scope(name: str) -> Iterator[None]:
     """Tally this thread's kernel launches under ``name`` inside the
     block (the guarded rollout's admission and shadow work use
-    ``ROLLOUT_SCOPE``), so the per-shape tally of the serving cycles stays the
-    serving cycles' own.  Every launch still adds one to
-    ``ScanKernel.launches``."""
+    ``ROLLOUT_SCOPE``, the startup bake-off ``AUTOSELECT_SCOPE``), so
+    the per-shape tally of the serving cycles stays the serving cycles'
+    own.  Every launch still adds one to ``ScanKernel.launches``."""
     prev = current_scope()
     _scope.name = name
     try:

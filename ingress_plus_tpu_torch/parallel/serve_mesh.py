@@ -282,6 +282,14 @@ class MeshEngine:
         return MeshEngine(cr, self.mesh, scan_impl=self.scan_impl,
                           shard_launches=self._sharded.shard_launches)
 
+    def autoselect_scan_impl(self, **kw) -> dict:
+        """Time the sharded impls on the live mesh, install the fastest
+        and return ``{impl: seconds}`` (the server prints it).  Times the
+        global-rows step, the variant :meth:`_dispatch` serves with."""
+        kw.setdefault("global_rows", True)
+        self._sharded.autoselect_scan_impl(**kw)
+        return dict(self._sharded.last_timings)
+
     # -------------------------------------------------------- dispatch
 
     def _dispatch(self, tokens, lengths, row_req, row_sv,

@@ -40,8 +40,17 @@ import torch
 
 from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
 from ingress_plus_tpu_torch.compiler.seclang import CLASSES
-from ingress_plus_tpu_torch.ops.cuda_build import SERVE_SCOPE, current_scope
-from ingress_plus_tpu_torch.models.engine import _segment_max, load_kernels
+from ingress_plus_tpu_torch.ops.cuda_build import (
+    AUTOSELECT_SCOPE,
+    SERVE_SCOPE,
+    current_scope,
+    launch_scope,
+)
+from ingress_plus_tpu_torch.models.engine import (
+    _segment_max,
+    bake_off_threads,
+    load_kernels,
+)
 from ingress_plus_tpu_torch.ops.pair_scan import PairScanner
 from ingress_plus_tpu_torch.ops.scan import (
     ScanTables,
@@ -51,7 +60,11 @@ from ingress_plus_tpu_torch.ops.scan import (
     scan_pairs,
 )
 from ingress_plus_tpu_torch.ops.step_scan import StepScanner
-from ingress_plus_tpu_torch.parallel.dcn import all_reduce_sum, gather_global
+from ingress_plus_tpu_torch.parallel.dcn import (
+    all_reduce_sum,
+    gather_global,
+    process_count,
+)
 from ingress_plus_tpu_torch.parallel.mesh import Mesh
 from ingress_plus_tpu_torch.utils.device import resolve_device
 
@@ -195,8 +208,9 @@ class _Replicated:
 
 
 def default_impl(device_type: str) -> str:
-    """``auto``: ``pallas2`` on ``cuda``, ``pair`` on ``cpu`` — a
-    constant, as the single engine's ``auto`` is."""
+    """The impl of a mesh built with ``scan_impl=None``: ``pallas2`` on
+    ``cuda``, ``pair`` on ``cpu`` (the server's ``--scan-impl auto``
+    then measures, :meth:`ShardedEngine.autoselect_scan_impl`)."""
     return "pallas2" if device_type == "cuda" else "pair"
 
 
@@ -229,6 +243,8 @@ class ShardedEngine:
         self.tenant_mask = tenant_rule_mask.astype(np.float32)
         self.scan_impl = (default_impl(self.device_type)
                           if scan_impl is None else scan_impl)
+        #: {impl: seconds} of the last :meth:`autoselect_scan_impl`
+        self.last_timings: Dict[str, float] = {}
         if self.device_type == "cuda":
             # the vote and mapping products must be exact float32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -258,6 +274,83 @@ class ShardedEngine:
 
     def set_scan_impl(self, scan_impl: str) -> None:
         self.scan_impl = scan_impl
+
+    def autoselect_scan_impl(self, B: int = 256, L: int = 256,
+                             iters: int = 17,
+                             include_pallas: Optional[bool] = None,
+                             global_rows: bool = False) -> str:
+        """Time the sharded scan impls on this mesh, keep the fastest and
+        return it; ``last_timings`` holds ``{impl: seconds of iters
+        steps}``.  Candidates: ``take`` and ``pair`` on a CPU mesh,
+        ``take`` and ``pallas2`` on a card mesh (``include_pallas``,
+        default: the mesh is on ``cuda``, adds ``pallas2``; on a CPU mesh
+        it raises ``ValueError``, as :func:`check_impl` does).  Inputs:
+        ``B`` (rounded up to a multiple of the data axis) rows of ``L``
+        seeded bytes 0..255 (``default_rng(7)``), one request per row,
+        with shard-local request ids, or global ones for
+        ``global_rows`` (the step variant the caller serves with:
+        ``MeshEngine`` passes True).  Each candidate runs one warm step,
+        then ``iters`` steps timed on the host clock with every card of
+        the mesh synchronized at both ends (a CPU mesh on one torch
+        thread, ``models.engine.bake_off_threads``); its launches are
+        tallied under ``launch_scope(AUTOSELECT_SCOPE)``.  A mesh over
+        several processes keeps the configured impl (its inputs would
+        have to be built on every process).  A candidate that raises
+        stops the bake-off: no impl is installed in its place."""
+        import time
+
+        if process_count() > 1:
+            return self.scan_impl
+        if include_pallas is None:
+            include_pallas = self.device_type == "cuda"
+        candidates = (["take"] + (["pair"] if self.device_type == "cpu"
+                                  else [])
+                      + (["pallas2"] if include_pallas else []))
+        for impl in candidates:
+            check_impl(impl, self.device_type)
+        n_data = self.mesh.shape["data"]
+        B = -(-B // n_data) * n_data
+        L += L % 2                       # the pair scan steps byte pairs
+        rng = np.random.default_rng(7)
+        tokens = rng.integers(0, 256, (B, L), dtype=np.int32).astype(
+            np.uint8)
+        lengths = np.full((B,), L, np.int32)
+        row_req = (np.arange(B, dtype=np.int32) if global_rows
+                   else np.tile(np.arange(B // n_data, dtype=np.int32),
+                                n_data))
+        row_sv = np.ones((B, self.st.rule_sv.shape[1]), np.int8)
+        tenants = np.zeros((B,), np.int32)
+        cards = sorted({d for row in self.rows for d in row
+                        if d.type == "cuda"}, key=str)
+
+        def step():
+            return self.step(tokens, lengths, row_req, row_sv, tenants, B,
+                             global_rows=global_rows)
+
+        def sync():
+            for d in cards:
+                torch.cuda.synchronize(d)
+
+        configured = self.scan_impl
+        timings = {}
+        try:
+            with launch_scope(AUTOSELECT_SCOPE), \
+                    bake_off_threads(self.rows[0][0]):
+                for impl in candidates:
+                    self.scan_impl = impl
+                    step()                                  # warm
+                    sync()
+                    t0 = time.perf_counter()
+                    for _ in range(iters):
+                        step()
+                    sync()
+                    timings[impl] = time.perf_counter() - t0
+        finally:
+            self.scan_impl = configured
+        best = min(timings, key=timings.get)
+        self.last_timings = timings
+        self.set_scan_impl(best)
+        return best
 
     # ------------------------------------------------- per-device state
 

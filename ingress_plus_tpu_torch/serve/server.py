@@ -39,10 +39,17 @@ through the same rollout.
 model) device mesh (parallel/serve_mesh.py ``MeshEngine``): the same
 batcher, buckets and confirm, with each bucket scanned by every (data
 row, model shard) entry on its own device and CUDA stream — on ``cuda``
-the pair kernel on each shard's class-id tables (``pallas2``), on
-``cpu`` the plain ``pair`` scan.  ``--mesh`` takes one lane (``--lanes
-1``); ``/rules/stats`` ``.device.mesh`` and ``/debug/kernels`` ``mesh``
-carry each entry's launches.
+the pair kernel on each shard's class-id tables (``pallas2``) or the
+step kernel (``take``), on ``cpu`` the plain ``pair`` or ``take`` scan.
+``--mesh`` takes one lane (``--lanes 1``); ``/rules/stats``
+``.device.mesh`` and ``/debug/kernels`` ``mesh`` carry each entry's
+launches.
+
+``--scan-impl auto`` (the default) runs a startup bake-off on the live
+device, single engine or mesh: each impl the device can run is timed at
+one shape, the fastest is installed, and stderr gets ``scan impl
+auto-select: <impl>  (<impl>=<ms>ms, ...)``.  ``--scan-impl <impl>``
+installs that impl and measures nothing.
 
 ``--front`` runs the shared admission front instead of a detection node
 (serve/front.py): it fans the same wire protocol across the
@@ -56,7 +63,9 @@ Run:  python -m ingress_plus_tpu_torch.serve --socket /tmp/ipt.sock \
 
 ``--platform`` defaults to ``cuda``: without a card the process exits
 non-zero at startup, it never serves on the CPU unless asked to.  On
-``cuda`` both scan kernels are built and loaded before the socket opens.
+``cuda`` both scan kernels are built and loaded before the socket opens
+(and before the bake-off, whose launches ``/debug/kernels?scope=autoselect``
+counts).
 """
 
 from __future__ import annotations
@@ -1057,7 +1066,8 @@ class ServeLoop:
             # card run re-times at the serve path's own shapes.  The
             # serving cycles' launches (both generations during a
             # canary); ?scope=rollout: the rollout's admission and
-            # shadow launches instead
+            # shadow launches instead; ?scope=autoselect: the startup
+            # bake-off's
             from urllib.parse import parse_qs, urlsplit
             q = parse_qs(urlsplit(path).query, keep_blank_values=True)
             scope = (q.get("scope") or [SERVE_SCOPE])[0]
@@ -1541,15 +1551,20 @@ def build_default_batcher(mode: str = "block",
     ``cpu``: the plain scan).  The learned scoring head: the artifact at
     ``scoring_head_path`` when given, else the scorer LKG from
     ``lkg_dir``; one that does not load serves fixed CRS weights, with a
-    loud warning.  ``scan_impl`` "auto" is the device's
-    default: ``pallas3`` (the pair kernel on raw bytes) on ``cuda``,
-    ``pair`` on ``cpu`` — a constant, not a startup timing, until a
-    benchmark shows which kernel wins end to end.  Warmup dispatches run
-    on each lane's own worker thread, with its card and stream
-    current.  ``mesh_spec`` serves the scan over a device mesh
+    loud warning.  ``scan_impl`` "auto" runs the startup bake-off
+    (``autoselect_scan_impl``) on the live device once the pipeline is
+    built, before warmup: every impl the device can run is timed at one
+    shape and the fastest is installed (on ``cuda`` ``take``,
+    ``pallas``, ``pallas2``, ``pallas3``; on ``cpu`` ``pair``,
+    ``take``), and the timings go to stderr as ``scan impl
+    auto-select: <impl>  (<impl>=<ms>ms, ...)``; any other value is
+    installed as given, unmeasured.  Warmup dispatches run on each
+    lane's own worker thread, with its card and stream current.
+    ``mesh_spec`` serves the scan over a device mesh
     (parallel/serve_mesh.py): one lane only, ``pallas``/``pallas3``
     mapped to ``pallas2`` (the kernel with a sharded variant), ``auto``
-    = ``pallas2`` on ``cuda`` and ``pair`` on ``cpu``."""
+    measuring the sharded impls (``take`` and ``pallas2`` on ``cuda``,
+    ``take`` and ``pair`` on ``cpu``)."""
     import os
 
     from ingress_plus_tpu_torch.control.rollout import (
@@ -1647,9 +1662,18 @@ def build_default_batcher(mode: str = "block",
         print("kernels: built and loaded on %s (%s) in %.1fs"
               % (device, torch.cuda.get_device_name(device),
                  time.time() - t0), file=sys.stderr)
-    print("scan impl: %s%s" % (pipeline.engine.scan_impl,
-                                " (auto)" if scan_impl == "auto" else ""),
-          file=sys.stderr)
+    if scan_impl == "auto":
+        # the startup bake-off on the live device picks the serving scan
+        # impl; a candidate that fails stops the start
+        t0 = time.time()
+        timings = pipeline.engine.autoselect_scan_impl()
+        print("scan impl auto-select: %s  (%s)  bake-off %.1fs" % (
+            pipeline.engine.scan_impl,
+            ", ".join("%s=%.4fms" % (k, v * 1e3)
+                      for k, v in sorted(timings.items())),
+            time.time() - t0), file=sys.stderr)
+    else:
+        print("scan impl: %s" % pipeline.engine.scan_impl, file=sys.stderr)
     batcher = Batcher(pipeline, max_batch=max_batch, max_delay_s=max_delay_s,
                       hard_deadline_s=hard_deadline_s, queue_cap=queue_cap,
                       hang_budget_s=hang_budget_s,
@@ -1837,12 +1861,15 @@ def main(argv=None) -> None:
     ap.add_argument("--scan-impl", default="auto",
                     choices=["auto", "pair", "take", "pallas", "pallas2",
                              "pallas3"],
-                    help="scan implementation: on cuda auto = pallas3 "
-                         "(the pair kernel on raw bytes); pallas = the "
-                         "per-byte step kernel, pallas2 = the pair kernel "
-                         "on class ids; take = the per-byte scan on either "
-                         "device (the step kernel on cuda, the plain scan "
-                         "on cpu); on cpu auto = pair")
+                    help="scan implementation: auto = a startup "
+                         "bake-off that times every impl the device runs "
+                         "and serves the fastest (printed as 'scan impl "
+                         "auto-select: ...'); pallas3 = the pair kernel "
+                         "on raw bytes, pallas = the per-byte step kernel, "
+                         "pallas2 = the pair kernel on class ids; take = "
+                         "the per-byte scan on either device (the step "
+                         "kernel on cuda, the plain scan on cpu); pair = "
+                         "the plain pair scan (cpu)")
     ap.add_argument("--spool-dir", default=None,
                     help="postanalytics spool dir (attacks.jsonl); "
                          "enables the exporter loop")

@@ -252,7 +252,10 @@ def test_mesh_maps_the_single_device_kernels_to_pallas2(tiny, capsys):
                               warmup=False)
     try:
         assert isinstance(b.pipeline.engine, MeshEngine)
-        assert b.pipeline.engine.scan_impl == "pair"     # auto on cpu
+        # auto on cpu: the bake-off's fastest of pair and take
+        timings = b.pipeline.engine.sharded.last_timings
+        assert set(timings) == {"pair", "take"}
+        assert b.pipeline.engine.scan_impl == min(timings, key=timings.get)
     finally:
         b.close()
 
@@ -395,7 +398,7 @@ def test_mesh_serving_over_wire(tmp_path):
                 return json.loads(r.read())
 
         dev = get("/rules/stats")["device"]
-        assert dev["scan_impl"] == "pair"
+        assert dev["scan_impl"] in ("pair", "take")     # the bake-off's
         assert (dev["mesh"]["data"], dev["mesh"]["model"]) == (2, 4)
         kern = get("/debug/kernels")
         assert kern["mesh"]["devices"] == [["cpu"] * 4] * 2
