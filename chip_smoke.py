@@ -69,16 +69,8 @@ Phases (any failure ends the run with a non-zero exit code):
    over all the waves' rows stacked: bit-identical.  The CPU child starts
    with the script, so that it runs beside phases 1-5.
 8. The serve plane: ``python -m ingress_plus_tpu_torch.serve`` with its
-   defaults as a child process (platform cuda, ``--scan-impl auto``, one
-   inline confirm worker, warmup on).  Its startup bake-off must print
-   times for ``take``, ``pallas``, ``pallas2`` and ``pallas3``, the impl
-   ``/healthz`` reports must be the least of the finite times, and the
-   bake-off's launches (54 a candidate at 512 x 256) must all be
-   tallied under ``/debug/kernels?scope=autoselect``, so none under
-   ``serve``.  Which impl wins is no gate: from here on every launch
-   check follows the installed impl's kernel (``pallas3``/``pallas2``:
-   the pair kernel; ``pallas``/``take``: the step kernel, which the
-   stream lane launches whatever the impl).  Once ``/readyz``
+   defaults but ``--scan-impl pallas3`` as a child process (platform
+   cuda, one inline confirm worker, warmup on); once ``/readyz``
    answers, phase 3's requests over the UDS wire protocol on several
    pipelined connections (``serve/client.py``), then the first 512 of them
    again (the second wave), then
@@ -86,8 +78,8 @@ Phases (any failure ends the run with a non-zero exit code):
    phase 6 bodies as chunked streams.  Every response must equal phase
    3's CPU pipeline verdict (for the bodies the Batcher reroutes to the
    stream lane: the CPU stream engine's on the whole body) and phase 6's
-   CPU stream verdicts; ``/healthz`` must report the ``cuda`` backend;
-   on ``/metrics`` breaker trips, CPU-fallback and
+   CPU stream verdicts; ``/healthz`` must report the ``cuda`` backend and
+   ``pallas3``; on ``/metrics`` breaker trips, CPU-fallback and
    breaker-open batches, sheds, degraded and fail-open verdicts,
    watchdog hangs and serve-time recompiles must all read 0 and
    ``engine_us`` above 0.  The server's launches by kernel and shape
@@ -95,17 +87,22 @@ Phases (any failure ends the run with a non-zero exit code):
    lengths asked for, the latest launch's lengths) are read just before
    and just after the drive; their difference is this path's launches.
    Then the same waves to a second server with ``--confirm-workers
-   auto`` and the first server's impl as ``--scan-impl`` (the pooled
-   confirm against the inline walk, one interpreter lock either way).
-   Prints wire req/s, client-side p50/p99, the server's stage
-   breakdown, the confirm workers and the streamed MB/s.
+   auto`` and otherwise its defaults, so ``--scan-impl auto`` (the
+   pooled confirm against the inline walk, one interpreter lock either
+   way).  Its startup bake-off must print times for ``take``,
+   ``pallas``, ``pallas2`` and ``pallas3``, the impl ``/healthz``
+   reports must be the least of the finite times, and the bake-off's
+   launches (19 a candidate at 512 x 256: one eager pass and two CUDA
+   graph captures) must all be tallied under
+   ``/debug/kernels?scope=autoselect``, so none under ``serve``.  Which
+   impl wins is no gate: that server's kernel launches are not held.  Prints wire req/s, client-side p50/p99, the
+   server's stage breakdown, the confirm workers and the streamed MB/s.
    The port's promlint (``analysis/promlint.py``) finds nothing on the
    first server's ``/metrics`` after its traffic.
    Then each kernel at every (B, L, carried) shape the serve path
    launched: rows of the wire traffic's own bytes cut to that shape's
-   latest lengths, through the wrapper the server uses (``ByteScanner``
-   or ``PairScanner`` as its impl has it, ``StepScanner``), bit-identical
-   to the plain version, timed; the
+   latest lengths, through the wrapper the server uses (``ByteScanner``,
+   ``StepScanner``), bit-identical to the plain version, timed; the
    shape's time, the plain version's and the bound (from the work the
    server counted) over all its launches.
 9. The compiler and the guarded rollout on the card.  The port's compiler
@@ -118,7 +115,9 @@ Phases (any failure ends the run with a non-zero exit code):
    matrix's pack, W < 32).  Both kernels on the grow and tiny tables at
    the main path's shapes (phase 3's launches, phase 6's carried waves):
    bit-identical to ``scan_pairs`` / ``scan_bytes``.  Then the server
-   with ``--rules-dir`` (base) and ``--lkg-dir``, its defaults otherwise:
+   with ``--rules-dir`` (base), ``--lkg-dir`` and ``--scan-impl
+   pallas3`` (so that its pair launches are re-timed as one path), its
+   defaults otherwise:
    a wave of phase 3's requests plus six operator-rule requests; grow
    staged over ``/configuration/ruleset`` (small steps and minimums) —
    its admission report must equal the CPU pipeline's for the same pair
@@ -134,8 +133,7 @@ Phases (any failure ends the run with a non-zero exit code):
    ingress_plus_tpu_torch.control.dbg rollout`` against the server once
    grow is live (exit 0), and re-times the first server's launches
    (both generations' serving cycles and the rollout's admission and
-   shadow work, ``/debug/kernels?scope=rollout``) on grow's tables,
-   through the wrapper of the impl its bake-off installed.
+   shadow work, ``/debug/kernels?scope=rollout``) on grow's tables.
 10. The fault matrix: ``run_fault_matrix()`` on a batcher on the card,
     every ported scenario ``ok`` with the card's invariants (breaker-open
     batches fail open, none blocks, nothing moves to the host); one line
@@ -150,7 +148,8 @@ Phases (any failure ends the run with a non-zero exit code):
     another calibration margin.  One server with the post plane
     (``--spool-dir``, ``--export-url`` to an HTTP collector in this
     script, ``--export-interval-s 0.5``, brute/dirbust thresholds 8/12),
-    ``--artifact-dir``, ``--lkg-dir`` and ``--scoring-head`` head 1: a wave
+    ``--artifact-dir``, ``--lkg-dir``, ``--scan-impl pallas3`` and
+    ``--scoring-head`` head 1: a wave
     of phase 3's requests (without the rerouted bodies), the benign
     fixtures, a login flood and a wordlist sweep, every wire verdict the
     CPU pipeline's under head 1, ``ipt_scorer_diff_total`` its
@@ -169,8 +168,7 @@ Phases (any failure ends the run with a non-zero exit code):
     ``tenants``, ``rules``, ``drift``, ``breaker``, ``faults`` and
     ``scoring`` (``python -m ingress_plus_tpu_torch.control.dbg``
     children, all at once) against the server exit 0 with output.  The
-    server's launches (the kernel of the impl its bake-off installed
-    must be among them) re-timed at their shapes on the bundled tables.
+    server's launches re-timed at their shapes on the bundled tables.
 12. The native confirm twin, the tooling and the 2x pack; (a) and (e)
     run between phases 5 and 6, beside phase 6's CPU child, and (b), (c)
     and (d), whose rates move with the host's load, after phase 11.  (a)
@@ -213,20 +211,20 @@ Phases (any failure ends the run with a non-zero exit code):
     then every one of those launches again on its own rows and shard,
     bit-identical and timed against the bound: the kernels line's 2x4
     entry.  Then ``MeshEngine.autoselect_scan_impl()`` on the 2x4: it
-    times ``take`` and ``pallas2`` (1 + 17 global-rows steps each, 144
-    launches a candidate, all under the ``autoselect`` launch scope and
-    none in the shards' serving tally), installs the faster, and every
-    bucket's step then equals the plain CPU step.
+    times ``take`` and ``pallas2`` (a warm step, then 5 rounds of 17
+    global-rows steps each, all launches under the ``autoselect`` launch
+    scope and none in the shards' serving tally), installs the one with
+    the lesser median, and every bucket's step then equals the plain CPU
+    step.
     (c) ``ring_scan`` over four entries of the card on phase 6's seven
     bodies equals one contiguous ``StepScanner`` scan.  (d) ``python -m
-    ingress_plus_tpu_torch.serve --mesh 1x1`` on the card answers phase
+    ingress_plus_tpu_torch.serve --mesh 1x1 --scan-impl pallas2`` on the
+    card answers phase
     3's traffic over the wire with the CPU reference's verdicts
-    (``/healthz``: cuda); its startup bake-off prints ``take`` and
-    ``pallas2`` and installs the faster (18 launches a candidate under
-    ``autoselect``); its batch launches of that impl's kernel (equal to
-    its mesh's per-shard count) are re-run by shape on the shard's
-    tables, bit-identical and timed against the bound: the kernels
-    line's "mesh" entry.
+    (``/healthz``: cuda, ``pallas2``); its ``/debug/kernels`` launches
+    (equal to its mesh's per-shard count) are re-run by shape on the
+    shard's tables, bit-identical and timed against the bound: the
+    kernels line's "mesh" entry.
 14. The fleet.  Two card backends (the server's defaults, one process
     each) behind ``--front``, and a second front over the first backend
     alone.  A wave of phase 3's traffic through the two-backend front
@@ -267,7 +265,9 @@ Phases (any failure ends the run with a non-zero exit code):
     these changes, each printed: this run's Python for ``python``, the
     socket, spool and LKG paths in a temporary directory, a free
     ``--http-port``, and no ``--rules-dir`` (the bundled pack: the
-    ``rules/crs`` tree alone holds 252 of its 2009 rules).  Seconds to
+    ``rules/crs`` tree alone holds 252 of its 2009 rules), and
+    ``--scan-impl pallas3`` added (its pair launches are re-timed as one
+    path; the rendered ``auto`` would run a bake-off).  Seconds to
     ``/readyz`` beside the rendered liveness probe's delay.
     ``SyncController.sync``: sync 1 ``reload``, the rendered nginx.conf
     lint-clean, tenants 1..256, both pushes landed at the first attempt,
@@ -277,16 +277,15 @@ Phases (any failure ends the run with a non-zero exit code):
     ``tenant_masks`` of the synced tags and the pushed ACLs; sync 2 (32
     Ingresses retagged, the ACL content changed) ``dynamic`` with the
     text unchanged, both pushes landed, a second wave held to the new
-    state; sync 3 ``noop`` with no POST.  The server runs the rendered
-    ``--scan-impl`` (``auto``: the bake-off); the kernel of the impl it
-    installed must have launched, and its launches are re-run by shape,
-    bit-identical and timed; every health counter 0.
+    state; sync 3 ``noop`` with no POST.  The server's pair (and step)
+    launches re-run by shape, bit-identical and timed; every health
+    counter 0.
 17. The front door: the port's servers (each with ``--scan-impl
     pallas3``, so that their launches re-time as one path) behind the
-    repository's own C++ sidecar, loadgen and nginx module harness,
-    built from ``native/`` with its Makefiles' flags into
-    ``build/native`` (``ops/cuda_build.py build_native``; never in
-    ``native/``).  Every unix socket path comes
+    repository's own C++
+    sidecar, loadgen and nginx module harness, built from ``native/``
+    with its Makefiles' flags into ``build/native`` (``ops/cuda_build.py
+    build_native``; never in ``native/``).  Every unix socket path comes
     from ``utils/uds.py socket_path`` (it fits AF_UNIX whatever
     ``TMPDIR`` is).  Four legs, each of which logs ``FAILED phase 17 leg
     X`` and the last lines of every child's log before the run fails.
@@ -441,28 +440,22 @@ SERVE_WINDOW = 8
 SERVE_START_S = 420
 #: phase 8's second wave: the first this many of phase 3's requests
 SECOND_WAVE = 512
-#: ``--scan-impl auto`` on a card: the single engine's bake-off
-#: candidates, and each candidate's launches of its kernel (``k_diff_time``
-#: at the defaults k=17, n=2: three calls of 17 passes and three of one,
-#: one launch a pass), all at the bake-off's shape
-BAKE_OFF_IMPLS = ("take", "pallas", "pallas2", "pallas3")
-BAKE_OFF_LAUNCHES = 3 * 17 + 3 * 1
-BAKE_OFF_SHAPE = (512, 256)
-#: the mesh's bake-off: timed steps a candidate (after one warm step),
-#: at 256 rows x 256 bytes (``ShardedEngine.autoselect_scan_impl``)
-MESH_BAKE_OFF_ITERS = 17
-#: the kernel a card impl's batches launch (the stream lane launches the
-#: step kernel whatever the impl)
-BATCH_KERNEL = {"pallas3": "pair_scan", "pallas2": "pair_scan",
-                "pallas": "step_scan", "take": "step_scan",
-                "pair": "pair_scan"}
-#: the configuration of the kernel a card impl runs, for the kernels line
-IMPL_CONFIG = {"pallas3": "raw_byte", "pallas2": "class_id",
-               "pallas": "step", "take": "step", "pair": "plain"}
-#: the servers of phases 12 and 17 serve one kernel by design (an A/B
-#: that differs in confirm alone; five servers whose launches are
-#: re-timed as one path): they skip the bake-off
+#: a server that serves one kernel by design (its launch gates and
+#: re-times hold the pair kernel; an A/B that differs in confirm alone)
+#: runs no bake-off: it names its impl, the server's ``--scan-impl auto``
+#: of the card's constructor (``--mesh``: ``pallas2``)
 PINNED_IMPL = ("--scan-impl", "pallas3")
+MESH_PINNED_IMPL = ("--scan-impl", "pallas2")
+#: ``--scan-impl auto`` on a card: the single engine's bake-off
+#: candidates at its shape, and each candidate's launches there: the
+#: graphed chains of ``k_diff_time`` (one eager pass, then 17 and 1
+#: passes captured, every later call a replay, which the wrappers do not
+#: count)
+BAKE_OFF_IMPLS = ("take", "pallas", "pallas2", "pallas3")
+BAKE_OFF_SHAPE = (512, 256)
+BAKE_OFF_LAUNCHES = 1 + 17 + 1
+#: the mesh's bake-off: warm step, then rounds of timed steps
+MESH_BAKE_OFF_ITERS = 17
 #: phase 5: the requests the ``take`` pipeline runs (phase 3's first)
 TAKE_REQUESTS = 512
 #: every series of these must read 0 after phase 8
@@ -1729,24 +1722,16 @@ def kernel_shapes(srv, scope: str = "serve") -> dict:
             if k in ("pair_scan", "step_scan")}
 
 
-def served_impl(srv) -> str:
-    """The scan impl a running server serves (``/healthz``)."""
-    return json.loads(srv.get("/healthz")[1])["robustness"][
-        "device_path"]["scan_impl"]
-
-
-def check_auto_select(what: str, srv, impl: str,
-                      impls: tuple = BAKE_OFF_IMPLS,
-                      want: dict = None) -> dict:
+def check_auto_select(what: str, srv) -> dict:
     """A ``--scan-impl auto`` server's startup bake-off: its stderr line
-    must list every candidate of ``impls``, ``impl`` (what it serves)
-    must be the least of the finite times, and the bake-off's launches
-    must all sit under the ``autoselect`` launch scope: ``want`` ({kernel:
-    [(B, L, carried, launches)]}), by default the single engine's
-    :data:`BAKE_OFF_LAUNCHES` a candidate at :data:`BAKE_OFF_SHAPE` (state
-    carried by the per-byte impls).  As the bake-off makes exactly that
-    many, none of them is left to the serving cycles' tally.  Returns the
-    times (ms), the winner, the bake-off's seconds and launches."""
+    must list every candidate of :data:`BAKE_OFF_IMPLS`, the impl
+    ``/healthz`` reports must be the least of the finite times, and the
+    bake-off's launches must all sit under the ``autoselect`` launch
+    scope: :data:`BAKE_OFF_LAUNCHES` a candidate at
+    :data:`BAKE_OFF_SHAPE` (state carried by the per-byte impls).  As
+    the bake-off makes exactly that many, none of them is left to the
+    serving cycles' tally.  Which impl wins is no gate.  Returns the times (ms a pass), the winner, the bake-off's
+    seconds and launches."""
     found = re.findall(r"scan impl auto-select: (\w+)  \(([^)]*)\)  "
                        r"bake-off ([0-9.]+)s", srv.log())
     if len(found) != 1:
@@ -1755,23 +1740,23 @@ def check_auto_select(what: str, srv, impl: str,
     best, listed, secs = found[0]
     ms = {k: float(v[:-2]) for k, v in (x.split("=") for x in
                                         listed.split(", "))}
+    impl = json.loads(srv.get("/healthz")[1])["robustness"][
+        "device_path"]["scan_impl"]
     finite = [v for v in ms.values() if v < float("inf")]
-    if sorted(ms) != sorted(impls) or not finite \
+    if sorted(ms) != sorted(BAKE_OFF_IMPLS) or not finite \
             or best != impl or ms[impl] != min(finite):
         raise SystemExit("%s: the bake-off timed %s and installed %s; the "
                          "server serves %s" % (what, ms, best, impl))
-    if want is None:
-        want = {"pair_scan": [(*BAKE_OFF_SHAPE, False,
-                               2 * BAKE_OFF_LAUNCHES)],
-                "step_scan": [(*BAKE_OFF_SHAPE, True,
-                               2 * BAKE_OFF_LAUNCHES)]}
+    n = 2 * BAKE_OFF_LAUNCHES
+    want = {"pair_scan": [(*BAKE_OFF_SHAPE, False, n)],
+            "step_scan": [(*BAKE_OFF_SHAPE, True, n)]}
     got = {k: [(x["B"], x["L"], x["carried"], x["launches"])
                for x in v["shapes"]]
            for k, v in kernel_shapes(srv, "autoselect").items()}
     if got != want:
         raise SystemExit("%s: the bake-off's launches under the autoselect "
                          "scope are %s, want %s" % (what, got, want))
-    return {"impl": best, "ms": ms, "seconds": float(secs),
+    return {"impl": impl, "ms": ms, "seconds": float(secs),
             "launches": {k: sum(x[3] for x in v) for k, v in got.items()}}
 
 
@@ -1931,17 +1916,12 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
 
     cases = stream_cases(STREAM_BODY, STREAM_CHUNK, SEED)
     want, rerouted = wire_wants(requests, want)
-    with ServeChild() as srv:
+    with ServeChild(*PINNED_IMPL) as srv:
         path = json.loads(srv.get("/healthz")[1])["robustness"][
             "device_path"]
-        if path["backend"] != "cuda":
+        if path["backend"] != "cuda" or path["scan_impl"] != "pallas3":
             raise SystemExit("serve: /healthz device_path %s, want backend "
-                             "cuda" % path)
-        impl = path["scan_impl"]
-        auto = check_auto_select("serve", srv, impl)
-        log("serve: scan impl auto-select: %s (%s ms a pass), bake-off "
-            "%.2f s, launches %s under the autoselect scope"
-            % (impl, auto["ms"], auto["seconds"], auto["launches"]))
+                             "cuda and scan impl pallas3" % path)
         shapes0 = kernel_shapes(srv)
         launches0 = kernel_launches(srv.metrics())
         waves = [request_wave(srv.sock, requests, [want]),
@@ -1959,14 +1939,17 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     promlint_samples = lint_exposition("serve (phase 8) /metrics", metrics)
     launches = {k: launches1.get(k, 0) - launches0.get(k, 0)
                 for k in ("pair_scan", "step_scan")}
-    if launches[BATCH_KERNEL[impl]] <= 0 or launches["step_scan"] <= 0:
-        raise SystemExit("serve: kernels of the path (%s batches, the "
-                         "stream lane) never launched: %s" % (impl, launches))
+    if launches["pair_scan"] <= 0 or launches["step_scan"] <= 0:
+        raise SystemExit("serve: kernels of the path never launched: %s"
+                         % launches)
     shapes = shape_delta(shapes0, shapes1)
     workers = int(metric_values(metrics, "ipt_confirm_workers")[0][1])
-    # the comparison serves the first server's impl
-    with ServeChild("--confirm-workers", "auto", "--scan-impl",
-                    impl) as pooled:
+    with ServeChild("--confirm-workers", "auto") as pooled:
+        # the defaults' --scan-impl auto: the startup bake-off
+        auto = check_auto_select("serve", pooled)
+        log("serve: scan impl auto-select: %s (%s ms a pass), bake-off "
+            "%.2f s, launches %s under the autoselect scope"
+            % (auto["impl"], auto["ms"], auto["seconds"], auto["launches"]))
         auto_waves = [request_wave(pooled.sock, requests, [want]),
                       request_wave(pooled.sock, requests[:SECOND_WAVE],
                                    [want[:SECOND_WAVE]])]
@@ -1974,8 +1957,7 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
     check_serve_metrics("--confirm-workers auto", auto_metrics)
     wire = sum(len(c.body) for c in cases)
     res = {
-        "card": smi, "scan_impl": impl, "auto_select": auto,
-        "startup_s": startup_s,
+        "card": smi, "scan_impl": path["scan_impl"], "startup_s": startup_s,
         "requests": len(requests), "identical_verdicts": len(requests),
         "rerouted_to_stream_lane": rerouted,
         "connections": SERVE_CONNECTIONS, "window": SERVE_WINDOW,
@@ -1990,6 +1972,7 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
         "device_path": path,
         "promlint_samples": promlint_samples,
         "confirm_workers_auto": {
+            "scan_impl": auto["impl"], "auto_select": auto,
             "confirm_workers": int(metric_values(
                 auto_metrics, "ipt_confirm_workers")[0][1]),
             "waves": auto_waves,
@@ -1999,44 +1982,36 @@ def phase_serve(requests, want, stream_keys, smi: str) -> dict:
         "to the cpu reference (%d rerouted to the stream lane); %.1f / %.1f "
         "req/s on the wire (two waves), p50 %.2f ms p99 %.2f ms; 7 streams "
         "identical, %.3f MB/s; %d confirm worker(s); kernel launches %s; "
-        "--confirm-workers auto (%d): %.1f / %.1f req/s, p50 %.2f ms p99 "
-        "%.2f ms"
+        "--confirm-workers auto (%d, on %s): %.1f / %.1f req/s, p50 %.2f ms "
+        "p99 %.2f ms"
         % (len(requests), SERVE_CONNECTIONS, SERVE_WINDOW, len(rerouted),
            waves[0]["wire_req_per_s"], waves[1]["wire_req_per_s"],
            waves[0]["p50_ms"], waves[0]["p99_ms"], res["stream_mb_per_s"],
            workers, launches, res["confirm_workers_auto"]["confirm_workers"],
+           auto["impl"],
            auto_waves[0]["wire_req_per_s"], auto_waves[1]["wire_req_per_s"],
            auto_waves[0]["p50_ms"], auto_waves[0]["p99_ms"]))
     return res, shapes, traffic_pool(requests, cases)
 
 
 def phase_serve_kernels(tables, shapes, pool, dev: torch.device,
-                        label: str = "serve", impl: str = "pallas3") -> dict:
+                        label: str = "serve") -> dict:
     """Both kernels at a server's own shapes (``shape_delta``; phase 8's,
-    phase 11's): the pair kernel as the server's ``impl`` runs it
-    (``ByteScanner`` for ``pallas3``, ``PairScanner`` on class ids for
-    ``pallas2``), the step kernel as the stream lane, ``pallas`` and
-    ``take`` do.  A kernel the server never launched gets no shape."""
-    from ingress_plus_tpu_torch.ops.pair_scan import (
-        PAIR_SCAN,
-        ByteScanner,
-        PairScanner,
-    )
+    phase 11's): the pair kernel as ``pallas3`` runs it
+    (``ByteScanner``), the step kernel as the stream lane does."""
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
     from ingress_plus_tpu_torch.ops.scan import scan_bytes, scan_pairs
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
 
-    class_ids = impl == "pallas2"
-    pair = PairScanner if class_ids else ByteScanner
     return {
         "pair_scan": retime_shapes(
-            label + " pair", pair(tables), PAIR_SCAN,
+            label + " pair", ByteScanner(tables), PAIR_SCAN,
             lambda t, n, *c: scan_pairs(tables, t, n, *c), tables,
-            shapes.get("pair_scan", []), pool, dev, "pair",
-            class_ids=class_ids),
+            shapes["pair_scan"], pool, dev, "pair"),
         "step_scan": retime_shapes(
             label + " step", StepScanner(tables), STEP_SCAN,
             lambda t, n, *c: scan_bytes(tables, t, n, *c), tables,
-            shapes.get("step_scan", []), pool, dev, "step")}
+            shapes["step_scan"], pool, dev, "step")}
 
 
 def segment_rows(path: str, shapes) -> list:
@@ -2315,13 +2290,12 @@ def _phase_rollout(root, requests, main_inputs, waves, smi, dev):
         RolloutConfig())
     cpu_report = cpu_ro._replay_diff(cpu_inc, cpu_cand)
     lkg = os.path.join(root, "lkg")
-    args = ("--rules-dir", info["rules_dir"], "--lkg-dir", lkg)
+    args = ("--rules-dir", info["rules_dir"], "--lkg-dir", lkg) + PINNED_IMPL
     res = {"card": smi, "packs": info, "kernels": kern,
            "reference_s": ref_s, "verdicts_grow_changes": changed,
            "knobs": ROLLOUT_KNOBS, "window": ROLLOUT_WINDOW}
     with ServeChild(*args) as srv:
         res["startup_s"] = srv.startup_s
-        res["scan_impl"] = served_impl(srv)
         conf = http_json(srv.port, "GET", "/configuration")[1]
         if conf["ruleset"] != packs["base"].version:
             raise SystemExit("rollout: --rules-dir serves %s, not the base "
@@ -2455,17 +2429,29 @@ def _phase_rollout(root, requests, main_inputs, waves, smi, dev):
     return res, shapes, packs
 
 
-def phase_rollout_timing(packs, shapes, pool, dev: torch.device,
-                         impl: str) -> dict:
+def phase_rollout_timing(packs, shapes, pool, dev: torch.device) -> dict:
     """Both kernels at every shape phase 9's first server launched
     (serving cycles of both generations and the rollout's admission and
-    shadow work, on the server's ``impl``), re-timed as phase 8 does, on
-    the candidate's (grow) tables."""
-    from ingress_plus_tpu_torch.ops.scan import ScanTables
+    shadow work), re-timed as phase 8 does, on the candidate's (grow)
+    tables."""
+    from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, ByteScanner
+    from ingress_plus_tpu_torch.ops.scan import (
+        ScanTables,
+        scan_bytes,
+        scan_pairs,
+    )
+    from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
 
-    return phase_serve_kernels(ScanTables.from_bitap(packs["grow"].tables,
-                                                     dev),
-                               shapes, pool, dev, "rollout", impl)
+    tables = ScanTables.from_bitap(packs["grow"].tables, dev)
+    return {
+        "pair_scan": retime_shapes(
+            "rollout pair", ByteScanner(tables), PAIR_SCAN,
+            lambda t, n, *c: scan_pairs(tables, t, n, *c), tables,
+            shapes.get("pair_scan", []), pool, dev, "pair"),
+        "step_scan": retime_shapes(
+            "rollout step", StepScanner(tables), STEP_SCAN,
+            lambda t, n, *c: scan_bytes(tables, t, n, *c), tables,
+            shapes.get("step_scan", []), pool, dev, "step")}
 
 
 # ------------------------------------------------- phase 11: post + head
@@ -2744,7 +2730,8 @@ def _phase_post_scoring(root, requests, smi, dev, server_args, n_features):
             with ServeChild("--spool-dir", spool, "--export-url", sink.url,
                             *POST_ARGS, "--artifact-dir", artifacts,
                             "--lkg-dir", lkg, "--scoring-head",
-                            head_paths["head1"], *server_args) as srv:
+                            head_paths["head1"], *PINNED_IMPL,
+                            *server_args) as srv:
                 out, err = child.communicate(timeout=900)
                 if child.returncode != 0:
                     raise SystemExit("post: the cpu reference failed:\n"
@@ -2813,7 +2800,6 @@ def _post_serve(res, srv, sink, ds, ref, ref_base, traffic, calm, heads,
 
     head1, head2 = heads
     res["startup_s"] = srv.startup_s
-    res["scan_impl"] = served_impl(srv)
     res["features_cpu_s"] = ref["features_s"]
     cpu_ds = FeatureDataset.load(ref_base + "-features")
     for k in ("x", "x_candidates", "y", "rule_ids"):
@@ -2961,10 +2947,8 @@ def _post_serve(res, srv, sink, ds, ref, ref_base, traffic, calm, heads,
                         for k in serve1},
         "rollout_scope": {k: ro1[k]["launches"] - ro0[k]["launches"]
                           for k in ro1}}
-    batch = BATCH_KERNEL[res["scan_impl"]]
-    if res["launches"]["serve_scope"][batch] <= 0:
-        raise SystemExit("post: the server never launched %s, its %s "
-                         "batches' kernel" % (batch, res["scan_impl"]))
+    if res["launches"]["serve_scope"]["pair_scan"] <= 0:
+        raise SystemExit("post: the server never launched the pair kernel")
     res["dbg"] = dbg_views("post (phase 11)", srv.port, PHASE11_DBG)
 
 
@@ -3214,7 +3198,8 @@ def confirm_ab(platform: str = "cuda") -> dict:
 
 
 def serve_confirm_ab(requests, want) -> dict:
-    """(b) on the wire: two servers with their defaults, one with the
+    """(b) on the wire: two servers with their defaults but
+    :data:`PINNED_IMPL` (an A/B of the confirm alone), one with the
     twin and one with ``IPT_NO_NATIVE_CONFIRM=1``, both up at once and
     given phase 3's requests (without the bodies the Batcher reroutes) in
     turns: twin, Python, Python, twin.  Every verdict is phase 3's CPU
@@ -3233,9 +3218,9 @@ def serve_confirm_ab(requests, want) -> dict:
     env.pop("IPT_NO_NATIVE_CONFIRM", None)
     out = {"requests": len(reqs), "native": {"waves": []},
            "python": {"waves": []}}
-    pin = PINNED_IMPL if torch.cuda.is_available() else ()
-    with ServeChild(*pin, env=env) as twin, \
-            ServeChild(*pin, env=dict(env, IPT_NO_NATIVE_CONFIRM="1")) as py:
+    with ServeChild(*PINNED_IMPL, env=env) as twin, \
+            ServeChild(*PINNED_IMPL,
+                       env=dict(env, IPT_NO_NATIVE_CONFIRM="1")) as py:
         servers = {"native": twin, "python": py}
         for tag in ("native", "python", "python", "native"):
             out[tag]["waves"].append(
@@ -3462,14 +3447,13 @@ def mesh_launches(srv) -> int:
 def phase_mesh(cr, dev: torch.device, requests, want, cases,
                pool: np.ndarray) -> dict:
     """Phase 13: ``parallel/`` on the one card (module docstring)."""
-    from ingress_plus_tpu_torch.models.engine import DetectionEngine
+    from ingress_plus_tpu_torch.models.engine import (
+        CARD_ROUNDS,
+        DetectionEngine,
+    )
     from ingress_plus_tpu_torch.models.pipeline import DetectionPipeline
     from ingress_plus_tpu_torch.ops.pair_scan import PAIR_SCAN, PairScanner
-    from ingress_plus_tpu_torch.ops.scan import (
-        ScanTables,
-        scan_bytes,
-        scan_pairs,
-    )
+    from ingress_plus_tpu_torch.ops.scan import ScanTables, scan_pairs
     from ingress_plus_tpu_torch.ops.step_scan import STEP_SCAN, StepScanner
     from ingress_plus_tpu_torch.parallel import make_mesh
     from ingress_plus_tpu_torch.parallel.serve_mesh import MeshEngine
@@ -3600,7 +3584,7 @@ def phase_mesh(cr, dev: torch.device, requests, want, cases,
     bake_s = time.perf_counter() - t1
     scoped = {k.name: k.scope_launches("autoselect") - scoped[k.name]
               for k in (PAIR_SCAN, STEP_SCAN)}
-    steps = (1 + MESH_BAKE_OFF_ITERS) * n_data * n_model
+    steps = (1 + CARD_ROUNDS * MESH_BAKE_OFF_ITERS) * n_data * n_model
     if sorted(timings) != ["pallas2", "take"] \
             or eng24.scan_impl != min(timings, key=timings.get) \
             or scoped != {"pair_scan": steps, "step_scan": steps} \
@@ -3617,10 +3601,10 @@ def phase_mesh(cr, dev: torch.device, requests, want, cases,
                         for k, v in timings.items()},
         "launches": scoped}
     log("mesh (b): the 2x4 bake-off installed %s (%s ms a step of 256 rows "
-        "x 256 bytes, %d steps each), %.2f s; %s launches under the "
+        "x 256 bytes, median of %d rounds), %.2f s; %s launches under the "
         "autoselect scope; every bucket equals the plain cpu step after it"
         % (eng24.scan_impl, res["mesh_2x4"]["auto_select"]["ms_per_step"],
-           MESH_BAKE_OFF_ITERS, bake_s, scoped))
+           CARD_ROUNDS, bake_s, scoped))
 
     # (c) the ring over RING_SHARDS entries of the card, phase 6's bodies
     bodies = [c.body for c in cases]
@@ -3658,57 +3642,39 @@ def phase_mesh(cr, dev: torch.device, requests, want, cases,
 
     # (d) the server with --mesh 1x1 on the card, over the wire
     wants, rerouted = wire_wants(requests, want)
-    with ServeChild("--mesh", "1x1") as srv:
+    with ServeChild("--mesh", "1x1", *MESH_PINNED_IMPL) as srv:
         path = json.loads(srv.get("/healthz")[1])["robustness"][
             "device_path"]
-        if path["backend"] != "cuda":
-            raise SystemExit("mesh: /healthz device_path %s, want cuda"
-                             % path)
-        impl = path["scan_impl"]
-        mesh_auto = check_auto_select(
-            "mesh", srv, impl, ("take", "pallas2"),
-            {k: [(256, 256, False, 1 + MESH_BAKE_OFF_ITERS)]
-             for k in ("pair_scan", "step_scan")})
+        if path["backend"] != "cuda" or path["scan_impl"] != "pallas2":
+            raise SystemExit("mesh: /healthz device_path %s, want cuda "
+                             "and pallas2" % path)
         info = json.loads(srv.get("/rules/stats")[1])["device"]["mesh"]
         shapes0, mesh0 = kernel_shapes(srv), mesh_launches(srv)
         wave = request_wave(srv.sock, requests, [wants])
         shapes1, mesh1 = kernel_shapes(srv), mesh_launches(srv)
         metrics = srv.metrics()
     check_serve_metrics("--mesh 1x1", metrics)
-    # the batches' launches (the stream lane's, on the whole tables, are
-    # the carried ones)
-    name = BATCH_KERNEL[impl]
-    batch_shapes = [x for x in shape_delta(shapes0, shapes1)[name]
-                    if not x["carried"]]
-    served = sum(x["launches"] for x in batch_shapes)
+    shapes = shape_delta(shapes0, shapes1)
+    served = sum(x["launches"] for x in shapes["pair_scan"])
     if served <= 0 or served != mesh1 - mesh0:
-        raise SystemExit("mesh: the server's %s batch launches %d, its "
-                         "shards' %d" % (impl, served, mesh1 - mesh0))
-    tabs = one[impl].sharded.shard_tables(dev, 0).scan
-    if impl == "pallas2":
-        retimed = retime_shapes(
-            "pair mesh", PairScanner(tabs), PAIR_SCAN,
-            lambda t, n, *c: scan_pairs(tabs, t, n, *c), tabs,
-            batch_shapes, pool, dev, "pair", class_ids=True)
-    else:
-        retimed = retime_shapes(
-            "step mesh", StepScanner(tabs), STEP_SCAN,
-            lambda t, n, *c: scan_bytes(tabs, t, n, *c), tabs,
-            batch_shapes, pool, dev, "step")
+        raise SystemExit("mesh: the server's pallas2 launches %d, its "
+                         "shards' %d" % (served, mesh1 - mesh0))
+    tabs = one["pallas2"].sharded.shard_tables(dev, 0).scan
+    retimed = retime_shapes(
+        "pair mesh", PairScanner(tabs), PAIR_SCAN,
+        lambda t, n, *c: scan_pairs(tabs, t, n, *c), tabs,
+        shapes["pair_scan"], pool, dev, "pair", class_ids=True)
     res["serve"] = {"mesh": {k: info[k] for k in ("data", "model",
                                                   "w_shard", "k_max")},
                     "rerouted_to_stream_lane": rerouted,
-                    "scan_impl": impl, "auto_select": mesh_auto,
-                    "kernel": name, "batch_launches": served, **wave}
+                    "pallas2_launches": served, **wave}
     res["retimed"] = retimed
     res["seconds"] = time.perf_counter() - t0
-    log("mesh (d): --mesh 1x1 server on %s (auto-select %s ms for %d "
-        "steps): %d verdicts equal the cpu reference, %.1f req/s on the "
-        "wire, p50 %.2f ms p99 %.2f ms; %d %s batch launches; phase 13 "
-        "%.1f s"
-        % (impl, mesh_auto["ms"], MESH_BAKE_OFF_ITERS, len(requests),
-           wave["wire_req_per_s"], wave["p50_ms"], wave["p99_ms"], served,
-           name, res["seconds"]))
+    log("mesh (d): --mesh 1x1 server: %d verdicts equal the cpu reference, "
+        "%.1f req/s on the wire, p50 %.2f ms p99 %.2f ms; %d pallas2 "
+        "launches; phase 13 %.1f s"
+        % (len(requests), wave["wire_req_per_s"], wave["p50_ms"],
+           wave["p99_ms"], served, res["seconds"]))
     return res
 
 
@@ -4308,8 +4274,8 @@ def _phase_controller(root, requests, smi, server_args):
         serve0 = rendered_container(f.read(), "serve-0")
     port = free_port()
     argv, sock, changes = served_command(serve0["command"], root, port)
-    argv += list(server_args)
-    changes += ["%s added" % a for a in server_args]
+    argv += list(server_args + PINNED_IMPL)
+    changes += ["%s added" % a for a in server_args + PINNED_IMPL]
     log("controller: rendered serve-0: %s; env %s; run with these changes: "
         "%s" % (" ".join(serve0["command"]), serve0["env"] or "none",
                 "; ".join(changes)))
@@ -4329,7 +4295,6 @@ def _phase_controller(root, requests, smi, server_args):
     try:
         srv.ready()
         res["startup_s"] = srv.startup_s
-        res["scan_impl"] = served_impl(srv)
         res["liveness_initial_delay_s"] = serve0["liveness_delay_s"]
         log("controller: /readyz after %.1f s; the rendered liveness probe "
             "waits %s s" % (srv.startup_s, serve0["liveness_delay_s"]))
@@ -4441,9 +4406,9 @@ def _phase_controller(root, requests, smi, server_args):
     check_serve_metrics("controller (phase 16)", metrics)
     launches = {k: launches1.get(k, 0) - launches0.get(k, 0)
                 for k in ("pair_scan", "step_scan")}
-    if launches[BATCH_KERNEL[res["scan_impl"]]] <= 0:
-        raise SystemExit("controller: the kernel of the %s batches never "
-                         "launched: %s" % (res["scan_impl"], launches))
+    if launches["pair_scan"] <= 0:
+        raise SystemExit("controller: the pair kernel never launched: %s"
+                         % launches)
     res.update(
         sync2={"action": r2.action, "retagged_ingresses": retagged,
                "rendered_unchanged": True},
@@ -4786,7 +4751,7 @@ def _phase_front_door(root, requests, want, cases, stream_keys, chunk, smi,
         text = f.read()
     rendered = {n: rendered_container(text, n)
                 for n in ("serve-0", "serve-1", "detect-sidecar")}
-    pin = PINNED_IMPL if dev.type == "cuda" else ()
+    pin = PINNED_IMPL if dev.type == "cuda" else ("--scan-impl", "pair")
     held = ("--hard-deadline-ms", FRONT_DEADLINE_MS) + pin
     rules = os.path.join(root, "shim-rules")
     os.makedirs(rules)
@@ -5754,18 +5719,17 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     serve, serve_shapes, pool = phase_serve(requests, want,
                                             stream["cpu_keys"], smi)
     log("serve " + json.dumps(serve))
-    serve_k = phase_serve_kernels(kern["tables"], serve_shapes, pool, dev,
-                                  impl=serve["scan_impl"])
+    serve_k = phase_serve_kernels(kern["tables"], serve_shapes, pool, dev)
     rollout, rollout_shapes, rollout_packs = phase_rollout(
         requests, inputs, stream_waves, smi, dev)
     log("rollout " + json.dumps(rollout))
     rollout_k = phase_rollout_timing(rollout_packs, rollout_shapes, pool,
-                                     dev, rollout["scan_impl"])
+                                     dev)
     fault_matrix = phase_fault_matrix(dev)
     post, post_shapes = phase_post_scoring(requests, smi, dev)
     log("post " + json.dumps(post, default=str))
     post_k = phase_serve_kernels(kern["tables"], post_shapes, pool, dev,
-                                 "post", post["scan_impl"])
+                                 "post")
     late = phase_tooling_ab(dev, requests, want)
     tooling.update(late, seconds=tooling["seconds"] + late["seconds"],
                    twin_build_s=built[2][1])
@@ -5788,8 +5752,7 @@ def run_phases(kernels_only: bool, stream_child) -> int:
     controller, controller_shapes = phase_controller(requests, smi)
     log("controller " + json.dumps(controller))
     controller_k = phase_serve_kernels(kern["tables"], controller_shapes,
-                                       pool, dev, "controller",
-                                       controller["scan_impl"])
+                                       pool, dev, "controller")
     front, front_shapes, (shim_cr, shim_shapes) = phase_front_door(
         requests, want, stream_cases(STREAM_BODY, STREAM_CHUNK, SEED),
         stream["cpu_keys"], STREAM_CHUNK, smi, dev)
@@ -5850,15 +5813,6 @@ def run_phases(kernels_only: bool, stream_child) -> int:
               "step_scan": ("ingress_plus_tpu_torch/csrc/step_scan.cu",
                             "ingress_plus_tpu/ops/pallas_scan.py:49")}
 
-    def batches(impl):
-        return "batches on %s (%s)" % (impl, IMPL_CONFIG[impl])
-
-    def step_batches(impl):
-        """The step kernel's batches, where the server's impl is a
-        per-byte one."""
-        return (", " + batches(impl)
-                if BATCH_KERNEL[impl] == "step_scan" else "")
-
     def entry(name, path, totals, err, **more):
         """One kernels-line entry: every number over one path's
         launches."""
@@ -5881,13 +5835,9 @@ def run_phases(kernels_only: bool, stream_child) -> int:
               "counted" % serve_k[name]["total"]["launches"],
         segments=segment_rows("serve path",
                               serve_k[name]["shapes"].values()))
-        for name, what in (("pair_scan", batches(serve["scan_impl"])),
+        for name, what in (("pair_scan", "batches on pallas3 (raw_byte)"),
                            ("step_scan", "stream lane and oversized "
-                                         "bodies" + step_batches(
-                                             serve["scan_impl"])))
-        if serve_k[name]["total"]["launches"]]
-    rollout_work = ("admission replay, warm, smoke and shadow scans, and "
-                    "the canary's " + batches(rollout["scan_impl"]))
+                                         "bodies"))]
     rollout_entries = [entry(
         name, "rollout (phase 9): %s" % what, rollout_k[name]["total"],
         rollout_k[name]["total"]["max_abs_err"],
@@ -5906,14 +5856,11 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                  rollout["launches"]["rollout_scope"][name]),
         segments=segment_rows("rollout path",
                               rollout_k[name]["shapes"].values()))
-        for name, what in (("pair_scan", rollout_work),
+        for name, what in (("pair_scan", "admission replay, warm, smoke "
+                                         "and shadow scans, and the "
+                                         "canary's batches on pallas3"),
                            ("step_scan", "the rerouted body before and "
-                                         "after the rollout" + (
-                                             ", " + rollout_work
-                                             if step_batches(
-                                                 rollout["scan_impl"])
-                                             else "")))
-        if rollout_k[name]["total"]["launches"]]
+                                         "after the rollout"))]
     post_entries = [entry(
         name, "post plane and scoring head (phase 11): %s" % what,
         post_k[name]["total"], post_k[name]["total"]["max_abs_err"],
@@ -5928,20 +5875,16 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                  post["launches"]["serve_scope"][name],
                  post["launches"]["rollout_scope"][name]),
         segments=segment_rows("post path", post_k[name]["shapes"].values()))
-        for name, what in (("pair_scan", batches(post["scan_impl"])
-                            + " under a learned head, admissions and "
-                              "shadow scans"),
-                           ("step_scan", "carried scans of the admissions"
-                            + step_batches(post["scan_impl"])))
+        for name, what in (("pair_scan", "batches on pallas3 under a "
+                                         "learned head, admissions and "
+                                         "shadow scans"),
+                           ("step_scan", "carried scans of the admissions"))
         if post_k[name]["total"]["launches"]]
     mesh_t = mesh["retimed"]["total"]
-    mesh_impl = mesh["serve"]["scan_impl"]
     mesh_entries = [entry(
-        mesh["serve"]["kernel"], "mesh (phase 13 (d)): a --mesh 1x1 "
-        "server's batches, %s on the shard's tables (the server's "
-        "bake-off's pick)" % mesh_impl, mesh_t,
-        mesh_t["max_abs_err"],
-        configuration="%s (%s)" % (IMPL_CONFIG[mesh_impl], mesh_impl),
+        "pair_scan", "mesh (phase 13 (d)): a --mesh 1x1 server's batches, "
+        "pallas2 on the shard's class-id tables", mesh_t,
+        mesh_t["max_abs_err"], configuration="class_id (pallas2)",
         parity="bit-identical match and state at each of the --mesh 1x1 "
                "server's %d (B, L, carried) shapes on the 1x1 shard's "
                "tables (W=%d); every shard of the 2x4 mesh on one card "
@@ -5950,12 +5893,10 @@ def run_phases(kernels_only: bool, stream_child) -> int:
                % (len(mesh["retimed"]["shapes"]),
                   mesh["serve"]["mesh"]["w_shard"],
                   mesh["mesh_2x4"]["shard_checks"]),
-        shape="the server's %d %s batch launches, each shape's device "
-              "time once per launch of it%s; bound from the work the "
-              "server counted" % (mesh_t["launches"], mesh_impl,
-                                  " (class ids mapped beforehand, 4 bytes "
-                                  "a token)" if mesh_impl == "pallas2"
-                                  else ""),
+        shape="the server's %d pallas2 launches, each shape's device time "
+              "once per launch of it (class ids mapped beforehand); bound "
+              "from the work the server counted, 4 bytes a token"
+              % mesh_t["launches"],
         segments=segment_rows("mesh path", mesh["retimed"]["shapes"].values()))]
     mesh24 = mesh["retimed_2x4"]["total"]
     mesh_entries.append(entry(

@@ -29,6 +29,7 @@ build or load failure raises from the constructor.
 
 from __future__ import annotations
 
+import statistics
 from contextlib import contextmanager
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
@@ -37,7 +38,10 @@ import torch
 
 from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
 from ingress_plus_tpu_torch.compiler.seclang import CLASSES
-from ingress_plus_tpu_torch.ops.cuda_build import AUTOSELECT_SCOPE, launch_scope
+from ingress_plus_tpu_torch.ops.cuda_build import (
+    AUTOSELECT_SCOPE,
+    launch_scope,
+)
 from ingress_plus_tpu_torch.ops.pair_scan import (
     PAIR_SCAN,
     ByteScanner,
@@ -237,6 +241,16 @@ class EngineTables:
                   "rule_no_prefilter"):
             out[k] = getattr(self, k).cpu().numpy()
         return out
+
+
+#: rounds of a startup bake-off on a card; the median round is kept
+CARD_ROUNDS = 5
+
+
+def bake_off_rounds(device: torch.device) -> int:
+    """Rounds of a startup bake-off: :data:`CARD_ROUNDS` on a card, one
+    on a CPU device (a round of the plain scans takes seconds there)."""
+    return CARD_ROUNDS if device.type == "cuda" else 1
 
 
 @contextmanager
@@ -573,9 +587,7 @@ class DetectionEngine:
     # ------------------------------------------------- impl auto-select
 
     def autoselect_scan_impl(self, B: int = 512, L: int = 256, k: int = 17,
-                             n: int = 2,
-                             include_pallas: Optional[bool] = None
-                             ) -> Dict[str, float]:
+                             n: int = 2) -> Dict[str, float]:
         """Time each scan implementation that can run on this engine's
         device at one representative shape, install the fastest, and
         return ``{impl: seconds per pass}`` (``--scan-impl auto``: the
@@ -583,45 +595,48 @@ class DetectionEngine:
         every impl, so the choice is about speed alone.
 
         Candidates: ``pair`` and ``take`` on a CPU device; ``take``,
-        ``pallas``, ``pallas2`` and ``pallas3`` on a card
-        (``include_pallas``, default: the device is ``cuda``, adds the
-        three kernel impls; on a CPU device they raise ``ValueError``,
-        as :meth:`check_impl` does).  Inputs: ``B`` rows of ``L`` seeded
-        printable bytes (``default_rng(7)``), every row full, row ``i``
-        owned by request ``i % 8``, every stream-variant set.  Each
+        ``pallas``, ``pallas2`` and ``pallas3`` on a card (every impl
+        :meth:`check_impl` lets run there).  Inputs: ``B`` rows of ``L``
+        seeded printable bytes (``default_rng(7)``), every row full, row
+        ``i`` owned by request ``i % 8``, every stream-variant set.  Each
         candidate chains ``k`` passes of its scan (through
-        :meth:`scanner_for` or the plain scan, the lengths on the host as
-        a serving dispatch passes them) and :func:`map_match_words`: the
-        sticky match carries from pass to pass, and the state too for the
-        per-byte impls (``pallas``, ``take``).  Every impl takes the same
-        uint8 rows: seeded printable bytes are a raw request row
-        (``pallas3``'s contract) as well as a prepared one.  Timing:
-        ``utils/microbench.k_diff_time`` on the engine's device (CUDA
-        events on a card; one torch thread on a CPU device,
-        :func:`bake_off_threads`), the steady cost of one pass.  A time
-        <= 0 is no signal and reads ``inf``; when every candidate reads
-        ``inf`` the configured impl stays.  The kernels' launches are tallied
-        under ``launch_scope(AUTOSELECT_SCOPE)``, so the serving cycles'
+        :meth:`scanner_for` or the plain scan) and
+        :func:`map_match_words`: the sticky match carries from pass to
+        pass, and the state too for the per-byte impls (``pallas``,
+        ``take``).  Every impl takes the same uint8 rows: seeded printable
+        bytes are a raw request row (``pallas3``'s contract) as well as a
+        prepared one.  Timing: ``utils/microbench.k_diff_time``, the
+        steady cost of one pass.  On a card each chain is one CUDA graph
+        (``utils/microbench.graphed``) timed by CUDA events, so the time
+        is the card's work alone, as the JAX package's one jitted chain
+        is (eager dispatch would time the host's gaps, which vary more
+        from start to start than the impls differ), and each candidate's
+        time is the median of :data:`CARD_ROUNDS` rounds that each time
+        every candidate once in turn (the card's clock moves by more
+        than the kernels differ, now and then for a round).  On a CPU
+        device the chain runs eagerly on one torch thread
+        (:func:`bake_off_threads`), one round.  A time <= 0 is no signal
+        and reads ``inf``; when every candidate reads ``inf`` the
+        configured impl stays.  The kernels' launches are tallied under
+        ``launch_scope(AUTOSELECT_SCOPE)``, so the serving cycles'
         per-shape tally stays their own.
 
         One departure from the JAX package: a candidate that raises is
         not turned into ``inf``.  On a card that would serve another impl
         when a kernel fails to build or launch, so the error propagates
         (the server then does not start), as in :func:`load_kernels`."""
-        from ingress_plus_tpu_torch.utils.microbench import k_diff_time
+        from ingress_plus_tpu_torch.utils.microbench import (
+            graphed,
+            k_diff_time,
+        )
 
-        if include_pallas is None:
-            include_pallas = self.device.type == "cuda"
-        candidates = (["pair"] if self.device.type == "cpu" else []) + [
-            "take"] + (["pallas", "pallas2", "pallas3"]
-                       if include_pallas else [])
-        for impl in candidates:
-            self.check_impl(impl, self.device)
         dev, tables = self.device, self.tables
+        candidates = (["pair", "take"] if dev.type == "cpu"
+                      else ["take", "pallas", "pallas2", "pallas3"])
         rng = np.random.default_rng(7)
         tokens = torch.from_numpy(
             rng.integers(32, 127, (B, L)).astype(np.uint8)).to(dev)
-        lengths = torch.full((B,), L, dtype=torch.int32)
+        lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
         row_req = torch.from_numpy(
             (np.arange(B) % 8).astype(np.int32)).to(dev)
         row_sv = torch.ones((B, tables.rule_sv.shape[1]), dtype=torch.int8,
@@ -637,10 +652,9 @@ class DetectionEngine:
                     return scanner(tokens, lengths,
                                    state if carry_state else None, match)
                 if impl == "take":
-                    return scan_bytes(tables.scan, tokens, lengths.to(dev),
-                                      state, match)
-                return scan_pairs(tables.scan, tokens, lengths.to(dev),
-                                  None, match)
+                    return scan_bytes(tables.scan, tokens, lengths, state,
+                                      match)
+                return scan_pairs(tables.scan, tokens, lengths, None, match)
 
             def call(kk: int, rep: int) -> torch.Tensor:
                 acc = torch.zeros((), dtype=torch.int64, device=dev)
@@ -654,13 +668,16 @@ class DetectionEngine:
                                                       row_sv, 8)
                     acc = acc + match.sum() + rule_hits.sum()
                 return acc
-            return call
+            return graphed(call, dev)
 
-        timings: Dict[str, float] = {}
+        rounds = {impl: [] for impl in candidates}
         with launch_scope(AUTOSELECT_SCOPE), bake_off_threads(dev):
-            for impl in candidates:
-                dt = k_diff_time(chain(impl), k, n=n, device=dev)
-                timings[impl] = dt if dt > 0 else float("inf")
+            calls = {impl: chain(impl) for impl in candidates}
+            for _ in range(bake_off_rounds(dev)):
+                for impl in candidates:
+                    dt = k_diff_time(calls[impl], k, n=n, device=dev)
+                    rounds[impl].append(dt if dt > 0 else float("inf"))
+        timings = {impl: statistics.median(ts) for impl, ts in rounds.items()}
         best = min(timings, key=timings.get)
         if timings[best] < float("inf"):
             self.scan_impl = best

@@ -48,6 +48,7 @@ from ingress_plus_tpu_torch.ops.cuda_build import (
 )
 from ingress_plus_tpu_torch.models.engine import (
     _segment_max,
+    bake_off_rounds,
     bake_off_threads,
     load_kernels,
 )
@@ -277,37 +278,35 @@ class ShardedEngine:
 
     def autoselect_scan_impl(self, B: int = 256, L: int = 256,
                              iters: int = 17,
-                             include_pallas: Optional[bool] = None,
                              global_rows: bool = False) -> str:
         """Time the sharded scan impls on this mesh, keep the fastest and
         return it; ``last_timings`` holds ``{impl: seconds of iters
         steps}``.  Candidates: ``take`` and ``pair`` on a CPU mesh,
-        ``take`` and ``pallas2`` on a card mesh (``include_pallas``,
-        default: the mesh is on ``cuda``, adds ``pallas2``; on a CPU mesh
-        it raises ``ValueError``, as :func:`check_impl` does).  Inputs:
-        ``B`` (rounded up to a multiple of the data axis) rows of ``L``
-        seeded bytes 0..255 (``default_rng(7)``), one request per row,
-        with shard-local request ids, or global ones for
-        ``global_rows`` (the step variant the caller serves with:
-        ``MeshEngine`` passes True).  Each candidate runs one warm step,
-        then ``iters`` steps timed on the host clock with every card of
-        the mesh synchronized at both ends (a CPU mesh on one torch
-        thread, ``models.engine.bake_off_threads``); its launches are
-        tallied under ``launch_scope(AUTOSELECT_SCOPE)``.  A mesh over
-        several processes keeps the configured impl (its inputs would
-        have to be built on every process).  A candidate that raises
-        stops the bake-off: no impl is installed in its place."""
+        ``take`` and ``pallas2`` on a card mesh (every impl
+        :func:`check_impl` lets run there).  Inputs: ``B`` (rounded up
+        to a multiple of the data axis) rows of ``L`` seeded bytes
+        0..255 (``default_rng(7)``), one request per row, with
+        shard-local request ids, or global ones for ``global_rows`` (the
+        step variant the caller serves with: ``MeshEngine`` passes
+        True).  Each candidate runs one warm step, then ``iters`` steps
+        timed on the host clock with every card of the mesh synchronized
+        at both ends: the step dispatches every entry from the host, as
+        serving does, so the host's work is part of the time.  A card
+        mesh times ``CARD_ROUNDS`` rounds, each candidate once a round in
+        turn, and keeps each one's median round; a CPU mesh one round on
+        one torch thread (``models.engine.bake_off_rounds``,
+        ``bake_off_threads``).  Its launches are tallied under
+        ``launch_scope(AUTOSELECT_SCOPE)``.  A mesh over several
+        processes keeps the configured impl (its inputs would have to be
+        built on every process).  A candidate that raises stops the
+        bake-off: no impl is installed in its place."""
+        import statistics
         import time
 
         if process_count() > 1:
             return self.scan_impl
-        if include_pallas is None:
-            include_pallas = self.device_type == "cuda"
-        candidates = (["take"] + (["pair"] if self.device_type == "cpu"
-                                  else [])
-                      + (["pallas2"] if include_pallas else []))
-        for impl in candidates:
-            check_impl(impl, self.device_type)
+        candidates = ["take", "pair" if self.device_type == "cpu"
+                      else "pallas2"]
         n_data = self.mesh.shape["data"]
         B = -(-B // n_data) * n_data
         L += L % 2                       # the pair scan steps byte pairs
@@ -332,21 +331,25 @@ class ShardedEngine:
                 torch.cuda.synchronize(d)
 
         configured = self.scan_impl
-        timings = {}
+        rounds = {impl: [] for impl in candidates}
         try:
             with launch_scope(AUTOSELECT_SCOPE), \
                     bake_off_threads(self.rows[0][0]):
                 for impl in candidates:
                     self.scan_impl = impl
                     step()                                  # warm
-                    sync()
-                    t0 = time.perf_counter()
-                    for _ in range(iters):
-                        step()
-                    sync()
-                    timings[impl] = time.perf_counter() - t0
+                sync()
+                for _ in range(bake_off_rounds(self.rows[0][0])):
+                    for impl in candidates:
+                        self.scan_impl = impl
+                        t0 = time.perf_counter()
+                        for _ in range(iters):
+                            step()
+                        sync()
+                        rounds[impl].append(time.perf_counter() - t0)
         finally:
             self.scan_impl = configured
+        timings = {impl: statistics.median(ts) for impl, ts in rounds.items()}
         best = min(timings, key=timings.get)
         self.last_timings = timings
         self.set_scan_impl(best)

@@ -1669,7 +1669,7 @@ def build_default_batcher(mode: str = "block",
         timings = pipeline.engine.autoselect_scan_impl()
         print("scan impl auto-select: %s  (%s)  bake-off %.1fs" % (
             pipeline.engine.scan_impl,
-            ", ".join("%s=%.4fms" % (k, v * 1e3)
+            ", ".join("%s=%.5fms" % (k, v * 1e3)
                       for k, v in sorted(timings.items())),
             time.time() - t0), file=sys.stderr)
     else:

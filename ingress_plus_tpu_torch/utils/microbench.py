@@ -4,6 +4,7 @@ The port of ``ingress_plus_tpu/utils/microbench.py``.  Usage:
 
     python -m ingress_plus_tpu_torch.utils.microbench [--batch 256] [--len 1024]
     python -m ingress_plus_tpu_torch.utils.microbench --scan | --confirm | --retune
+    python -m ingress_plus_tpu_torch.utils.microbench --autoselect N
 
 ``--platform {cuda,cpu}`` picks the device (default ``cuda``, which
 raises where there is no card; ``cpu`` runs the plain versions).  The
@@ -29,6 +30,11 @@ modes) and the Pallas tiling flags ``--tb`` / ``--cl`` (the port's
 kernels plan their own segments, ``ops/segments.py``).  The
 Mosaic-interpreter parity run becomes a bit-identity check of each
 kernel scanner against its plain version at a small shape.
+
+``--autoselect N`` (``bench_autoselect``) runs the startup bake-offs of
+the server's ``--scan-impl auto`` N times each in one process and
+prints every run's times and winner: how stable the ranking is from
+one start to the next.
 
 ``bench_confirm`` and ``bench_retune`` run the port's
 ``DetectionPipeline`` on the device the caller names (the JAX versions
@@ -94,6 +100,39 @@ def k_diff_time(call, k: int, n: int = 2, device: DeviceLike = None) -> float:
     callers treat that as NO SIGNAL, never as a throughput."""
     return (best_time(call, k, n, device)
             - best_time(call, 1, n, device)) / (k - 1)
+
+
+def graphed(call, device: DeviceLike = None):
+    """``call(k, rep)`` for :func:`best_time` and :func:`k_diff_time`
+    with the host taken out of the timing: on a card, each ``k`` is
+    captured once into a CUDA graph (after one eager ``call(1, 0)`` on a
+    side stream, for the lazy set-up a capture may not do) and every
+    call replays it on the current stream; ``rep`` is ignored, the
+    inputs are the captured ones.  On the CPU, ``call`` itself."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return call
+    graphs = {}
+
+    def replay(k: int, rep: int):
+        if not graphs:
+            with torch.cuda.device(dev):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    call(1, 0)
+                torch.cuda.current_stream().wait_stream(side)
+        if k not in graphs:
+            with torch.cuda.device(dev):
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    out = call(k, rep)
+            graphs[k] = (g, out)
+        g, out = graphs[k]
+        with torch.cuda.device(dev):
+            g.replay()
+        return out
+    return replay
 
 
 def _load_tables(dev: torch.device) -> ScanTables:
@@ -432,6 +471,44 @@ def bench_retune(n_req: int = 1024, iters: int = 5, flood_dup: int = 4,
     return out
 
 
+def bench_autoselect(repeats: int = 5, device: DeviceLike = None,
+                     cr=None) -> dict:
+    """The startup bake-offs of ``--scan-impl auto``, ``repeats`` times
+    each in this process, on the bundled pack (or ``cr``): the single
+    engine's (``DetectionEngine.autoselect_scan_impl`` at its defaults)
+    and the 1x1 and 2x4 meshes' on the one device
+    (``MeshEngine.autoselect_scan_impl``).  For each: every run's
+    ``{impl: ms}`` (a pass for the engine, a step for a mesh), its
+    winner and its seconds, and how often each impl won."""
+    from collections import Counter
+
+    from ingress_plus_tpu_torch.models.engine import DetectionEngine
+    from ingress_plus_tpu_torch.parallel import make_mesh
+    from ingress_plus_tpu_torch.parallel.serve_mesh import MeshEngine
+
+    dev = resolve_device(device)
+    cr = compile_ruleset(load_bundled_rules()) if cr is None else cr
+    out = {"device": str(dev), "repeats": repeats}
+    engines = {"engine": DetectionEngine(cr, device=dev)}
+    for n_data, n_model in ((1, 1), (2, 4)):
+        engines["mesh_%dx%d" % (n_data, n_model)] = MeshEngine(
+            cr, make_mesh(n_data, n_model,
+                          devices=[dev] * (n_data * n_model)))
+    for name, eng in engines.items():
+        per = 1 if name == "engine" else 1.0 / 17
+        runs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            timings = eng.autoselect_scan_impl()
+            runs.append({"impl": eng.scan_impl,
+                         "ms": {k: v * 1e3 * per
+                                for k, v in sorted(timings.items())},
+                         "seconds": time.perf_counter() - t0})
+        out[name] = {"runs": runs,
+                     "wins": dict(Counter(r["impl"] for r in runs))}
+    return out
+
+
 def main(argv=None) -> int:
     from ingress_plus_tpu_torch.utils.platform import ensure_live_backend
 
@@ -453,6 +530,9 @@ def main(argv=None) -> int:
     ap.add_argument("--retune", action="store_true",
                     help="profile-guided retuning A/B: static vs "
                          "profile-priced pack x verdict cache off/on")
+    ap.add_argument("--autoselect", type=int, default=0, metavar="N",
+                    help="run the startup bake-offs of --scan-impl auto "
+                         "(engine, 1x1 and 2x4 meshes) N times each")
     ap.add_argument("--reqs", type=int, default=1024,
                     help="corpus size for --confirm / --retune")
     args = ap.parse_args(argv)
@@ -464,6 +544,9 @@ def main(argv=None) -> int:
         out = fn(n_req=args.reqs, iters=max(2, min(args.iters, 5)),
                  device=dev)
         print(json.dumps(out))
+        return 0
+    if args.autoselect:
+        print(json.dumps(bench_autoselect(args.autoselect, device=dev)))
         return 0
     if args.scan:
         out = bench_scan_modes(iters=max(3, args.iters), device=dev)

@@ -9,9 +9,9 @@ hits and sharded outputs equal the JAX package's on the same seeded
 inputs (tolerance: none, they are booleans and small integers).  Then
 the edges: every candidate without a signal keeps the configured impl
 in both packages; a candidate that raises stops the port's bake-off
-(the JAX package would score it ``inf``); the kernel impls on a CPU
-engine raise; the bake-off's launches are tallied under their own
-scope; and the server measures under ``auto`` only.  Which impl wins is
+(the JAX package would score it ``inf``); given the same times both
+packages install the same impl; the bake-off's launches are tallied
+under their own scope; and the server measures under ``auto`` only.  Which impl wins is
 never asserted: it is a timing.
 """
 
@@ -218,13 +218,29 @@ def test_a_candidate_that_raises_stops_the_bake_off(packs, monkeypatch,
     assert eng.scan_impl == "pair"
 
 
-@pytest.mark.parametrize("which", ["engine", "sharded"])
-def test_kernel_candidates_on_a_cpu_engine_raise(packs, which):
-    _, cr = packs
-    eng = _engine(cr, which)
-    with pytest.raises(ValueError, match="cannot run on a cpu"):
-        eng.autoselect_scan_impl(include_pallas=True)
-    assert eng.scan_impl == "pair"
+@pytest.mark.parametrize("faster", ["pair", "take"])
+def test_the_least_time_is_installed_in_both_packages(packs, monkeypatch,
+                                                      faster):
+    """Given the same times, both packages install the same impl: the
+    one with the least time a pass, whichever candidate that is."""
+    jcr, cr = packs
+    calls = []
+
+    def times(*a, **k):
+        calls.append(None)
+        # candidates are timed in the order pair, take in both packages
+        return 1e-3 if ("pair", "take")[(len(calls) - 1) % 2] == faster \
+            else 2e-3
+
+    monkeypatch.setattr(jmicro, "k_diff_time", times)
+    monkeypatch.setattr(tmicro, "k_diff_time", times)
+    jeng = jengine.DetectionEngine(jcr)
+    want = jeng.autoselect_scan_impl(**ENGINE_KW)
+    calls.clear()
+    eng = tengine.DetectionEngine(cr, device=CPU)
+    timings = eng.autoselect_scan_impl(**ENGINE_KW)
+    assert timings == want
+    assert jeng.scan_impl == eng.scan_impl == faster
 
 
 @pytest.mark.parametrize("which", ["engine", "sharded"])

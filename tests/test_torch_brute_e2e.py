@@ -51,7 +51,7 @@ def server(tmp_path_factory):
         [sys.executable, "-m", "ingress_plus_tpu_torch.serve",
          "--socket", sock, "--http-port", str(port),
          "--rules-dir", str(rules_dir), "--platform", "cpu",
-         "--max-delay-us", "1000", "--no-warmup",
+         "--scan-impl", "pair", "--max-delay-us", "1000", "--no-warmup",
          "--hard-deadline-ms", "5000",
          "--spool-dir", str(spool), "--export-interval-s", "0.3",
          "--brute-threshold", "8", "--brute-window-s", "60",

@@ -272,8 +272,9 @@ def cpu_server(tmp_path_factory):
     log = open(tmp / "serve.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "ingress_plus_tpu_torch.serve", "--socket",
-         sock, "--http-port", str(port), "--platform", "cpu", "--rules-dir",
-         str(rules), "--no-warmup", "--hard-deadline-ms", "30000"],
+         sock, "--http-port", str(port), "--platform", "cpu", "--scan-impl",
+         "pair", "--rules-dir", str(rules), "--no-warmup",
+         "--hard-deadline-ms", "30000"],
         cwd=str(REPO), env=env, stdout=log, stderr=subprocess.STDOUT)
     try:
         deadline = time.time() + 240

@@ -199,7 +199,8 @@ def test_serve_subprocess_answers_a_frame_with_jax_absent(tmp_path):
     sock = str(tmp_path / "iso.sock")
     proc = subprocess.Popen(
         [sys.executable, "-c", _SERVER, "--socket", sock, "--http-port", "0",
-         "--platform", "cpu", "--no-warmup", "--hard-deadline-ms", "5000"],
+         "--platform", "cpu", "--scan-impl", "pair", "--no-warmup",
+         "--hard-deadline-ms", "5000"],
         cwd=str(REPO), env=_env(), stderr=subprocess.PIPE, text=True)
     try:
         deadline = time.time() + 120

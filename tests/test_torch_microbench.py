@@ -126,3 +126,26 @@ def test_confirm_bench_counts_equal_jax(confirm_runs):
     assert native["flood/memo"]["memo_hits"] > 0
     assert native["verdicts_sha256"] == python["verdicts_sha256"]
     json.dumps(native)
+
+
+def test_repeated_bake_offs_report_every_run_on_the_cpu():
+    """``--autoselect N``: each bake-off (engine, 1x1 and 2x4 meshes) runs
+    N times; every run names its candidates' times and installs the
+    least, and the wins add up to N."""
+    from ingress_plus_tpu_torch.compiler.ruleset import compile_ruleset
+    from ingress_plus_tpu_torch.compiler.seclang import parse_seclang
+
+    cr = compile_ruleset(parse_seclang(
+        'SecRule ARGS "@rx (?i)union\\s+select" '
+        '"id:942100,phase:2,block,tag:\'attack-sqli\'"'))
+    out = microbench.bench_autoselect(2, device="cpu", cr=cr)
+    assert (out["device"], out["repeats"]) == ("cpu", 2)
+    for name, impls in (("engine", {"pair", "take"}),
+                        ("mesh_1x1", {"pair", "take"}),
+                        ("mesh_2x4", {"pair", "take"})):
+        runs = out[name]["runs"]
+        assert len(runs) == 2 and sum(out[name]["wins"].values()) == 2
+        for r in runs:
+            assert set(r["ms"]) == impls and r["seconds"] > 0
+            assert r["impl"] == min(r["ms"], key=r["ms"].get)
+    json.dumps(out)

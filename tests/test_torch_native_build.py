@@ -211,8 +211,8 @@ def test_under_a_150_character_tmpdir_the_front_door_reaches_a_server(
         serve = subprocess.Popen(
             [sys.executable, "-m", "ingress_plus_tpu_torch.serve",
              "--socket", serve_sock, "--rules-dir", str(rules),
-             "--platform", "cpu", "--no-warmup", "--hard-deadline-ms",
-             "5000", "--http-port", "0"],
+             "--platform", "cpu", "--scan-impl", "pair", "--no-warmup",
+             "--hard-deadline-ms", "5000", "--http-port", "0"],
             cwd=str(REPO), env=env, stderr=subprocess.PIPE, text=True)
         procs.append(serve)
         _wait_socket(serve_sock, serve, "server")

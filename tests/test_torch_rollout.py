@@ -604,7 +604,8 @@ def test_build_default_batcher_pack_sources(packs, tmp_path):
                         ({"rules_dir": str(rules)}, packs["inc"].version),
                         ({"rules_dir": str(rules), "lkg_dir": str(lkg)},
                          packs["inc"].version)):
-        b = build_default_batcher(warmup=False, platform="cpu", **kw)
+        b = build_default_batcher(warmup=False, platform="cpu",
+                                  scan_impl="pair", **kw)
         try:
             assert b.pipeline.ruleset.version == version
             assert b.rollout is not None
@@ -613,8 +614,8 @@ def test_build_default_batcher_pack_sources(packs, tmp_path):
             b.close()
     persist_lkg(packs["cand"], lkg)
     b = build_default_batcher(warmup=False, platform="cpu",
-                              rules_dir=str(rules), lkg_dir=str(lkg),
-                              rollout_steps=[0.5, 1.0])
+                              scan_impl="pair", rules_dir=str(rules),
+                              lkg_dir=str(lkg), rollout_steps=[0.5, 1.0])
     try:
         assert b.pipeline.ruleset.version == packs["cand"].version
         assert b.rollout.config.steps == (0.5, 1.0)
@@ -766,7 +767,7 @@ def _start_server(tmp_path, rules, lkg, tag):
     proc = subprocess.Popen(
         [sys.executable, "-m", "ingress_plus_tpu_torch.serve",
          "--socket", sock, "--http-port", str(port), "--platform", "cpu",
-         "--no-warmup", "--hard-deadline-ms", "5000",
+         "--scan-impl", "pair", "--no-warmup", "--hard-deadline-ms", "5000",
          "--rules-dir", str(rules), "--lkg-dir", str(lkg)],
         cwd=str(REPO), env=env, stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE, text=True)

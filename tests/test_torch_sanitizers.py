@@ -466,7 +466,8 @@ def _rehearse(tmp_path, monkeypatch, tool_text, tool_rc, child_rc=0,
                         + cuda_build.SANITIZER_BINARIES)
     return chip_smoke.phase_sanitizers(
         bins, {"pair_scan": None, "step_scan": None}, "cpu",
-        server_args=("--platform", "cpu", "--hard-deadline-ms", "20000"))
+        server_args=("--platform", "cpu", "--scan-impl", "pair",
+                     "--hard-deadline-ms", "20000"))
 
 
 def test_phase_19_records_a_refusing_tool_and_passes_on_the_rest(

@@ -358,7 +358,8 @@ def test_mesh_serving_over_wire(tmp_path):
         [sys.executable, "-m", "ingress_plus_tpu_torch.serve",
          "--socket", sock_path, "--http-port", str(port),
          "--rules-dir", str(rules_dir), "--platform", "cpu",
-         "--mesh", "2x4", "--max-delay-us", "1000", "--no-warmup",
+         "--scan-impl", "pair", "--mesh", "2x4", "--max-delay-us", "1000",
+         "--no-warmup",
          "--hard-deadline-ms", "10000"],
         cwd=str(REPO), env=_env(), stderr=subprocess.PIPE, text=True)
     try:
@@ -398,7 +399,7 @@ def test_mesh_serving_over_wire(tmp_path):
                 return json.loads(r.read())
 
         dev = get("/rules/stats")["device"]
-        assert dev["scan_impl"] in ("pair", "take")     # the bake-off's
+        assert dev["scan_impl"] == "pair"
         assert (dev["mesh"]["data"], dev["mesh"]["model"]) == (2, 4)
         kern = get("/debug/kernels")
         assert kern["mesh"]["devices"] == [["cpu"] * 4] * 2
