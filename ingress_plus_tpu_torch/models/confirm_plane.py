@@ -400,7 +400,7 @@ class ConfirmJob:
     fold fails exactly those requests open)."""
 
     __slots__ = ("requests", "rule_hits", "results", "pending", "memo",
-                 "launch_us")
+                 "launch_us", "launch_cpu_us")
 
     def __init__(self, requests, rule_hits) -> None:
         self.requests = requests
@@ -410,6 +410,9 @@ class ConfirmJob:
         self.pending: List[Tuple[int, List[int], object]] = []
         self.memo: Optional[ConfirmMemo] = None
         self.launch_us = 0
+        #: the launch's thread CPU µs, the inline walk included
+        #: (PipelineStats.confirm_cpu_us)
+        self.launch_cpu_us = 0
 
 
 class ConfirmPool:
@@ -485,6 +488,7 @@ def launch_confirm(pl, requests, rule_hits: np.ndarray) -> ConfirmJob:
     memo = job.memo
     pool = pl.confirm_pool
     t0 = time.perf_counter()
+    cpu0 = time.thread_time_ns()
     # tenant-targeted slow_confirm (docs/ROBUSTNESS.md "Tenant
     # isolation"): the per-request arrival points below exist ONLY when
     # the active plan targets a tenant — untargeted plans never reach
@@ -523,6 +527,7 @@ def launch_confirm(pl, requests, rule_hits: np.ndarray) -> ConfirmJob:
                 continue
 
             def _share(idxs=idxs, tt=tt, wi=wi):
+                share_cpu0 = time.thread_time_ns()
                 flight.set_cycle(trace_cycle)
                 flight.begin(EV_CONFIRM, cycle=trace_cycle, tag=wi,
                              arg=len(idxs))
@@ -539,14 +544,16 @@ def launch_confirm(pl, requests, rule_hits: np.ndarray) -> ConfirmJob:
                     if tt:
                         faults.set_current_tenant(None)
                     flight.end(EV_CONFIRM, cycle=trace_cycle, tag=wi)
-                return out
+                return out, (time.thread_time_ns() - share_cpu0) // 1000
 
             job.pending.append((wi, idxs, pool.submit(wi, _share)))
+    job.launch_cpu_us = (time.thread_time_ns() - cpu0) // 1000
     job.launch_us = int((time.perf_counter() - t0) * 1e6)
     return job
 
 
-def join_confirm(pl, job: ConfirmJob) -> List[Optional[ConfirmResult]]:
+def join_confirm(pl, job: ConfirmJob
+                 ) -> Tuple[List[Optional[ConfirmResult]], int]:
     """Bounded-join the confirm shares.  ONE shared deadline for the
     whole batch (the shares launched together — k wedged workers cost
     one hang budget, not k, as in the mesh loop's lane collection).  A
@@ -555,14 +562,17 @@ def join_confirm(pl, job: ConfirmJob) -> List[Optional[ConfirmResult]]:
     ``stats.confirm_hangs`` counts it.  A share that RAISED re-raises
     after every other share is folded — the batch-level error contract
     of the serial path, with the healthy shares' work not discarded by
-    ordering."""
+    ordering.  Returns the results and the thread CPU µs of the shares
+    joined."""
     if not job.pending:
-        return job.results
+        return job.results, 0
+    cpu_us = 0
     deadline = time.perf_counter() + pl.confirm_pool.hang_budget_s
     err: Optional[BaseException] = None
     for wi, idxs, pending in job.pending:
         try:
-            out = pending.wait(max(deadline - time.perf_counter(), 0.001))
+            out, share_cpu_us = pending.wait(
+                max(deadline - time.perf_counter(), 0.001))
         except DeviceHang:
             pl.stats.confirm_hangs += 1
             pl.confirm_pool.replace(wi)
@@ -571,8 +581,9 @@ def join_confirm(pl, job: ConfirmJob) -> List[Optional[ConfirmResult]]:
             if err is None:
                 err = e
             continue
+        cpu_us += share_cpu_us
         for i, res in out:
             job.results[i] = res
     if err is not None:
         raise err
-    return job.results
+    return job.results, cpu_us

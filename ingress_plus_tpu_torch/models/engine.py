@@ -30,8 +30,9 @@ build or load failure raises from the constructor.
 from __future__ import annotations
 
 import statistics
+import time
 from contextlib import contextmanager
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +58,26 @@ from ingress_plus_tpu_torch.ops.scan import (
 )
 from ingress_plus_tpu_torch.utils import faults
 from ingress_plus_tpu_torch.utils.device import DeviceLike, resolve_device
+from ingress_plus_tpu_torch.utils.trace import EV_ENGINE_SYNC, flight
+
+
+def copy_back(t: torch.Tensor,
+              sync_ns: Optional[List[int]] = None) -> np.ndarray:
+    """``t`` as numpy, inside an ``engine_sync`` span: the engine's one
+    wait on the card.  ``sync_ns``, when given, gets the copy's wall ns
+    and the thread CPU ns it burned (a CUDA wait may spin) added to its
+    two items, so a caller can tell its own CPU time from the wait."""
+    flight.begin(EV_ENGINE_SYNC)
+    t0 = time.perf_counter_ns()
+    c0 = time.thread_time_ns()
+    try:
+        return t.cpu().numpy()
+    finally:
+        if sync_ns is not None:
+            sync_ns[1] += time.thread_time_ns() - c0
+            sync_ns[0] += time.perf_counter_ns() - t0
+        flight.end(EV_ENGINE_SYNC)
+
 
 #: serving name -> scanner class of the kernel implementations
 KERNEL_SCANNERS = {"pallas3": ByteScanner, "pallas2": PairScanner,
@@ -539,7 +560,8 @@ class DetectionEngine:
 
     def detect_device_multi(self, buckets: Sequence, num_requests: int,
                             head_only: bool = False,
-                            device: Optional[torch.device] = None
+                            device: Optional[torch.device] = None,
+                            sync_ns: Optional[List[int]] = None
                             ) -> np.ndarray:
         """Multi-bucket dispatch with ONE mapping pass: each length bucket
         scans on its own, then the factor→rule mapping runs once on the
@@ -550,7 +572,8 @@ class DetectionEngine:
         honors them.  ``device`` pins the dispatch to one serve lane's
         card: inputs go there and the scan runs against that card's
         table replica (``tables_for``), on the calling thread's current
-        stream.  Returns the (Q, R) rule hits as numpy."""
+        stream.  Returns the (Q, R) rule hits as numpy; the copy back's
+        time goes to ``sync_ns`` (:func:`copy_back`)."""
         faults.sleep_if("dispatch_hang")
         faults.raise_if("dispatch_raise")
         dev = self.device if device is None else torch.device(device)
@@ -582,7 +605,7 @@ class DetectionEngine:
             tabs, torch.cat(ms, dim=0),
             self._to_dev(np.concatenate(rrs), dev),
             self._to_dev(np.concatenate(rss), dev), num_requests)
-        return rule_hits.cpu().numpy()
+        return copy_back(rule_hits, sync_ns)
 
     # ------------------------------------------------- impl auto-select
 

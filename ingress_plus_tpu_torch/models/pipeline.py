@@ -157,6 +157,19 @@ class PipelineStats:
     confirm_hangs: int = 0
     confirm_memo_hits: int = 0
     confirm_memo_misses: int = 0
+    #: the engine's and confirm's host split (/metrics
+    #: ipt_engine_cpu_us_sum and friends), measured on the thread that
+    #: does the work and booked with ``engine_us`` / ``confirm_us``:
+    #: ``engine_sync_us`` is the wall time of the engine's copy back,
+    #: its one wait on the card; ``engine_cpu_us`` the thread CPU time
+    #: over the intervals that book ``engine_us``, less what that wait
+    #: burned; ``confirm_cpu_us`` the thread CPU time of the intervals
+    #: that book ``confirm_us``, plus each pooled confirm share's, so
+    #: with --confirm-workers > 1 it sums parallel workers and can pass
+    #: ``confirm_us``
+    engine_sync_us: int = 0
+    engine_cpu_us: int = 0
+    confirm_cpu_us: int = 0
 
     #: the admission-shared counters (fail_open / degraded / shed /
     #: scorer_diff) are bumped from every thread that can fail a
@@ -181,6 +194,16 @@ class PipelineStats:
     def count_scorer_diff(self, kind: str) -> None:
         with self._lock:
             self.scorer_diff[kind] = self.scorer_diff.get(kind, 0) + 1
+
+    def count_host(self, engine_cpu_us: int = 0, engine_sync_us: int = 0,
+                   confirm_cpu_us: int = 0) -> None:
+        """Book the engine's and confirm's host split: booked with
+        ``engine_us`` from the dispatch thread and with it from
+        ``prefilter`` on the stream, oversized and shadow threads."""
+        with self._lock:
+            self.engine_cpu_us += engine_cpu_us
+            self.engine_sync_us += engine_sync_us
+            self.confirm_cpu_us += confirm_cpu_us
 
     def count_shed(self, reason: str) -> None:
         """One admission shed (readers snapshot with dict())."""
@@ -214,6 +237,10 @@ class _ScanJob:
     live_rows: int = 0
     padded_rows: int = 0
     busy_us: int = 0
+    #: the dispatch's thread CPU outside the copy back, and the copy
+    #: back's wall time (PipelineStats.engine_cpu_us / engine_sync_us)
+    cpu_us: int = 0
+    sync_us: int = 0
     pending: object = None
     result: Optional[np.ndarray] = None
 
@@ -769,6 +796,8 @@ class DetectionPipeline:
 
         def _dispatch():
             tb0 = time.perf_counter()
+            tc0 = time.thread_time_ns()
+            sync_ns = [0, 0]
             flight.set_cycle(trace_cycle)
             flight.begin(EV_DEVICE, cycle=trace_cycle, tag=trace_lane,
                          arg=len(requests))
@@ -777,11 +806,14 @@ class DetectionPipeline:
                 # worker: the dispatch thread never waits on the card
                 return engine.detect_device_multi(
                     tuple(buckets), Q_pad, head_only=head_ok,
-                    device=device)
+                    device=device, sync_ns=sync_ns)
             finally:
                 # device busy time measured INSIDE the worker: the
                 # overlap design means launch→collect wall includes a
                 # whole drain window — that must not book as scan time
+                job.cpu_us = (time.thread_time_ns() - tc0
+                              - sync_ns[1]) // 1000
+                job.sync_us = sync_ns[0] // 1000
                 job.busy_us = int((time.perf_counter() - tb0) * 1e6)
                 flight.end(EV_DEVICE, cycle=trace_cycle, tag=trace_lane)
 
@@ -823,9 +855,13 @@ class DetectionPipeline:
         if job.pending is not None:
             rule_hits |= job.pending.wait(timeout)
             st.engine_us += job.busy_us
+            st.count_host(engine_cpu_us=job.cpu_us,
+                          engine_sync_us=job.sync_us)
         elif job.result is not None:
             rule_hits |= job.result
             st.engine_us += job.busy_us
+            st.count_host(engine_cpu_us=job.cpu_us,
+                          engine_sync_us=job.sync_us)
         masked = self.mask_hits(requests, rule_hits[:Q])
         st.prefilter_rule_hits += int(masked.sum())
         if job.level == 1:
@@ -931,7 +967,8 @@ class DetectionPipeline:
         no request carries scannable bytes.  stats.prep_us gets the
         normalize/merge cost; the pad/pack cost (``bucket_us``) rides
         the scan stage — the caller adds it to engine_us
-        (docs/OBSERVABILITY.md)."""
+        (docs/OBSERVABILITY.md), and its thread CPU time is booked
+        here to engine_cpu_us."""
         tp0 = time.perf_counter()
         flight.begin(EV_PREP)
         if faults.fire("recompile_storm"):
@@ -962,6 +999,7 @@ class DetectionPipeline:
         if not data_list:
             return [], (), False, 0, 0, 0
         te0 = time.perf_counter()
+        tc0 = time.thread_time_ns()
         n_sv = len(STREAMS) * len(VARIANTS)
         # rows bucket into fixed L tiers, row counts pad to powers of
         # two, and Q pads likewise: a bounded set of launch shapes
@@ -1007,6 +1045,8 @@ class DetectionPipeline:
             padded_rows += B_pad
         bucket_shapes = tuple((b[0].shape[0], b[0].shape[1])
                               for b in buckets)
+        stats.count_host(
+            engine_cpu_us=(time.thread_time_ns() - tc0) // 1000)
         bucket_us = int((time.perf_counter() - te0) * 1e6)
         return (buckets, bucket_shapes, head_ok, bucket_us,
                 live_rows, padded_rows)
@@ -1024,6 +1064,8 @@ class DetectionPipeline:
         rule_hits = np.zeros((self._pad_q(Q), R), dtype=bool)
         if buckets:
             te0 = time.perf_counter()
+            tc0 = time.thread_time_ns()
+            sync_ns = [0, 0]
             # lane attribution from the worker's thread-local stamp
             # (utils/faults): canary/tenant-degraded/stream scans ride
             # whichever lane is serving; -1 = a host thread with no
@@ -1037,9 +1079,14 @@ class DetectionPipeline:
             stats.engine_compiles += self._count_new_executables()
             self.seen_shapes.add((bucket_shapes, self._pad_q(Q), head_ok))
             rule_hits |= self.engine.detect_device_multi(
-                tuple(buckets), self._pad_q(Q), head_only=head_ok)
+                tuple(buckets), self._pad_q(Q), head_only=head_ok,
+                sync_ns=sync_ns)
             stats.engine_us += bucket_us + int(
                 (time.perf_counter() - te0) * 1e6)
+            stats.count_host(
+                engine_cpu_us=(time.thread_time_ns() - tc0
+                               - sync_ns[1]) // 1000,
+                engine_sync_us=sync_ns[0] // 1000)
             flight.end(EV_DEVICE, tag=_ltag)
         rule_hits = self.mask_hits(requests, rule_hits[:Q])
         stats.prefilter_rule_hits += int(rule_hits.sum())
@@ -1088,8 +1135,9 @@ class DetectionPipeline:
         verdict."""
         stats = self.stats
         tc0 = time.perf_counter()
+        cpu0 = time.thread_time_ns()
         flight.begin(EV_FINALIZE, arg=len(cjob.requests))
-        results = join_confirm(self, cjob)
+        results, shares_cpu_us = join_confirm(self, cjob)
         requests, rule_hits = cjob.requests, cjob.rule_hits
         verdicts: List[Verdict] = []
         rs = self.ruleset
@@ -1213,6 +1261,8 @@ class DetectionPipeline:
         # and join is the double buffer's window, not confirm cost —
         # excluded by construction; the per-rule confirm_ns telemetry
         # (RuleStats) carries the true CPU cost either way.
+        stats.count_host(confirm_cpu_us=cjob.launch_cpu_us + shares_cpu_us
+                         + (time.thread_time_ns() - cpu0) // 1000)
         stats.confirm_us += cjob.launch_us + int(
             (time.perf_counter() - tc0) * 1e6)
         stats.confirmed_rule_hits += sum(len(v.rule_ids) for v in verdicts)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ingress_plus_tpu_torch.compiler.ruleset import CompiledRuleset
+from ingress_plus_tpu_torch.models.engine import copy_back
 from ingress_plus_tpu_torch.parallel.mesh import Mesh, default_devices
 from ingress_plus_tpu_torch.parallel.shard import ShardedEngine
 from ingress_plus_tpu_torch.utils.device import DeviceLike
@@ -337,18 +338,21 @@ class MeshEngine:
 
     def detect_device_multi(self, buckets: Sequence, num_requests: int,
                             head_only: bool = False,
-                            device: Optional[torch.device] = None
+                            device: Optional[torch.device] = None,
+                            sync_ns: Optional[List[int]] = None
                             ) -> np.ndarray:
         """The pipeline's multi-bucket dispatch: one sharded step per
         bucket, rule hits OR-ed (the JAX pipeline's per-bucket path for
         engines without a fused dispatch).  ``head_only`` is moot (the
         step scans the full tables); ``device``, a serve lane's card,
-        must be the mesh's own first device."""
+        must be the mesh's own first device; the copy backs' time goes
+        to ``sync_ns`` (models/engine.py ``copy_back``)."""
         if device is not None and torch.device(device) != self.device:
             raise ValueError("mesh engine on %s dispatched for lane "
                              "device %s" % (self.device, device))
         rule_hits = np.zeros((num_requests, max(self.ruleset.n_rules, 1)),
                              bool)
         for tok, ln, rr, rs in buckets:
-            rule_hits |= self.detect_device(tok, ln, rr, rs, num_requests)
+            rh, _, _ = self._dispatch(tok, ln, rr, rs, num_requests)
+            rule_hits |= copy_back(rh, sync_ns)
         return rule_hits

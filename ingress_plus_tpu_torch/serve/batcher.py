@@ -96,6 +96,7 @@ from ingress_plus_tpu_torch.utils.trace import (
     EV_OVERSIZED,
     EV_QUEUE,
     EV_STREAM,
+    EV_STREAM_FEED,
     EV_SUBMIT,
     EV_VERDICT,
     EV_WATCHDOG,
@@ -792,12 +793,17 @@ class Batcher:
             with self._swap_lock:
                 h = self.stream_engine.begin(meta, body_cap=len(body))
                 h.base_hits = self.pipeline.prefilter([meta])[0]
+            # each feed runs off the lock; its time is booked under it
             for i in range(0, len(body), self.OVERSIZE_CHUNK):
-                inc = h.feed(body[i:i + self.OVERSIZE_CHUNK])
+                inc, feed_us = self._timed_feed(
+                    h, body[i:i + self.OVERSIZE_CHUNK])
                 with self._swap_lock:
+                    self.stream_engine.stats.feed_us += feed_us
                     self.stream_engine.scan(inc)
+            inc, feed_us = self._timed_feed(h, None)
             with self._swap_lock:
-                self.stream_engine.scan(h.flush())
+                self.stream_engine.stats.feed_us += feed_us
+                self.stream_engine.scan(inc)
                 v = self.stream_engine.finish(h)
         except Exception:
             self.pipeline.stats.count_fail_open()
@@ -815,6 +821,18 @@ class Batcher:
                 request, v, time.time(), 0, oversized=True,
                 worker=v.confirm_worker, tenant=request.tenant,
                 generation=v.generation))
+
+    @staticmethod
+    def _timed_feed(h: StreamState, data: Optional[bytes]):
+        """``h.feed(data)``, or ``h.flush()`` for None, inside a
+        ``stream_feed`` span: the scan increments and the µs it took."""
+        tf = time.perf_counter()
+        flight.begin(EV_STREAM_FEED, cycle=0)
+        try:
+            inc = h.flush() if data is None else h.feed(data)
+        finally:
+            flight.end(EV_STREAM_FEED, cycle=0)
+        return inc, int((time.perf_counter() - tf) * 1e6)
 
     # --------------------------------------------- streaming-body API
     # (config #5).  Queue FIFO guarantees begin ≤ chunks ≤ finish order;
@@ -2177,12 +2195,20 @@ class Batcher:
                 for i, h in enumerate(live):
                     h.base_hits = base[i]
             items = []
-            for h, data in chunks:
-                if not (h.aborted or h.error):
-                    items.extend(h.feed(data))
-            for h, _ in finishes:
-                if not (h.aborted or h.error):
-                    items.extend(h.flush())
+            if chunks or finishes:
+                tf = time.perf_counter()
+                flight.begin(EV_STREAM_FEED, arg=len(chunks))
+                try:
+                    for h, data in chunks:
+                        if not (h.aborted or h.error):
+                            items.extend(h.feed(data))
+                    for h, _ in finishes:
+                        if not (h.aborted or h.error):
+                            items.extend(h.flush())
+                finally:
+                    flight.end(EV_STREAM_FEED)
+                    self.stream_engine.stats.feed_us += int(
+                        (time.perf_counter() - tf) * 1e6)
             if items:
                 self.stream_engine.scan(items)
         except Exception:

@@ -139,6 +139,21 @@ METRIC_HELP = {
         "breaker-open batches of a card pipeline, failed open",
     "ipt_stage_us": "per-stage latency histogram (log2 us buckets)",
     "ipt_batch_size": "batch-size distribution (pow2 buckets)",
+    "ipt_engine_sync_us_sum":
+        "cumulative wall time of the engine's copy back of rule hits (us)",
+    "ipt_engine_cpu_us_sum":
+        "cumulative thread CPU time of the engine stage, outside its "
+        "copy back (us)",
+    "ipt_confirm_cpu_us_sum":
+        "cumulative thread CPU time of the confirm stage, summed over "
+        "confirm workers: above ipt_confirm_us_sum when they overlap (us)",
+    "ipt_stream_feed_us_sum":
+        "cumulative stream chunk decode and normalize time (us)",
+    "ipt_stream_wave_us_sum":
+        "cumulative stream scan-wave round trips to the device (us)",
+    "ipt_stream_finish_us_sum":
+        "cumulative stream finish time, confirm included (us)",
+    "ipt_stream_finishes_total": "streams finished to a verdict",
     "ipt_rule_family_hits_total": "confirmed hits per CRS family",
     "ipt_rule_family_candidates_total":
         "prefilter candidates per CRS family",
@@ -764,6 +779,26 @@ class ServeLoop:
             "ipt_engine_us_sum %d" % p.engine_us,
             "# TYPE ipt_confirm_us_sum counter",
             "ipt_confirm_us_sum %d" % p.confirm_us,
+            # the engine's and confirm's host split, measured on the
+            # thread that does the work
+            "# TYPE ipt_engine_sync_us_sum counter",
+            "ipt_engine_sync_us_sum %d" % p.engine_sync_us,
+            "# TYPE ipt_engine_cpu_us_sum counter",
+            "ipt_engine_cpu_us_sum %d" % p.engine_cpu_us,
+            "# TYPE ipt_confirm_cpu_us_sum counter",
+            "ipt_confirm_cpu_us_sum %d" % p.confirm_cpu_us,
+        ]
+        # the stream lane's own clock (serve/stream.py StreamStats)
+        ss = self.batcher.stream_engine.stats
+        lines += [
+            "# TYPE ipt_stream_feed_us_sum counter",
+            "ipt_stream_feed_us_sum %d" % ss.feed_us,
+            "# TYPE ipt_stream_wave_us_sum counter",
+            "ipt_stream_wave_us_sum %d" % ss.wave_us,
+            "# TYPE ipt_stream_finish_us_sum counter",
+            "ipt_stream_finish_us_sum %d" % ss.finish_us,
+            "# TYPE ipt_stream_finishes_total counter",
+            "ipt_stream_finishes_total %d" % ss.finishes,
         ]
         # confirm plane (docs/CONFIRM_PLANE.md): pool geometry, wedged-
         # worker shares, flood-memo outcome counters, and the
@@ -1890,18 +1925,23 @@ def main(argv=None) -> None:
                          "and stage them through /configuration/ruleset "
                          "(sync-node analog; needs --http-port)")
     ap.add_argument("--trace-dir", default=None,
-                    help="collect a torch.profiler trace (host + CUDA) "
-                         "of the serve loop and write it as a Chrome "
-                         "trace into this dir at shutdown")
+                    help="collect a torch.profiler trace (host + CUDA, "
+                         "every thread) of the serve loop and write it "
+                         "as a Chrome trace into this dir at shutdown, "
+                         "with the flight recorder's spans merged in on "
+                         "its clock; raises the recorder's ring to "
+                         "keep the whole run (--trace-ring-kb); see "
+                         "docs/PORT_TRACING.md")
     ap.add_argument("--sidecar-status", default=None,
                     help="host:port of the native sidecar's --status-port"
                          " listener; /traces/request then includes the "
                          "sidecar hop's per-upstream EWMA timing")
-    ap.add_argument("--trace-ring-kb", type=int, default=256,
+    ap.add_argument("--trace-ring-kb", type=int, default=None,
                     help="cycle flight recorder: per-thread event-ring "
                          "byte cap (docs/OBSERVABILITY.md 'Cycle flight "
                          "recorder'); the recorder is always-on and "
-                         "allocation-light — this bounds its memory")
+                         "allocation-light — this bounds its memory "
+                         "(default 256, or 32768 under --trace-dir)")
     ap.add_argument("--no-flight-recorder", action="store_true",
                     help="disable the cycle flight recorder entirely: "
                          "/debug/trace empties, /healthz "
@@ -1997,10 +2037,11 @@ def main(argv=None) -> None:
     # cycle flight recorder knobs (docs/OBSERVABILITY.md): configure
     # BEFORE the batcher's threads start so every ring carries the
     # chosen cap and the escape hatch truly zeroes the surface
-    from ingress_plus_tpu_torch.utils.trace import flight
+    from ingress_plus_tpu_torch.utils.trace import flight, ring_kb_for
 
-    flight.configure(ring_kb=args.trace_ring_kb,
-                     enabled=not args.no_flight_recorder)
+    flight.configure(
+        ring_kb=ring_kb_for(args.trace_ring_kb, bool(args.trace_dir)),
+        enabled=not args.no_flight_recorder)
 
     try:
         batcher = build_default_batcher(

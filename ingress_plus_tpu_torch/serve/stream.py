@@ -68,6 +68,11 @@ from ingress_plus_tpu_torch.serve.unpack import (
     grpc_content_kind,
     header_lookup,
 )
+from ingress_plus_tpu_torch.utils.trace import (
+    EV_STREAM_FINISH,
+    EV_STREAM_WAVE,
+    flight,
+)
 
 # longest suffix that might be an incomplete %-escape: %, %X, %u, %uX..%uXXX
 _URL_TAIL = re.compile(rb"%(?:u[0-9a-fA-F]{0,3}|[0-9a-fA-F])?$")
@@ -288,7 +293,12 @@ class StreamStats:
     """What the stream engine did, on the host clock.  ``wave_us`` is
     the part of ``scan_us`` spent in the scanner's round trip (copies to
     the device, the scan, copies back, which wait for the scan);
-    ``finish_us`` includes the confirm stage."""
+    ``finish_us`` includes the confirm stage, over ``finishes`` streams;
+    ``feed_us`` is the chunks' incremental decode and normalize
+    (``StreamState.feed`` / ``flush``), which the batcher books.  Written
+    by one thread at a time: the lane worker while the dispatch thread
+    holds the batcher's swap lock, or the oversized side lane holding
+    it."""
 
     waves: int = 0
     wave_rows: int = 0
@@ -296,6 +306,8 @@ class StreamStats:
     scan_us: int = 0
     wave_us: int = 0
     finish_us: int = 0
+    finishes: int = 0
+    feed_us: int = 0
 
 
 class StreamEngine:
@@ -415,8 +427,12 @@ class StreamEngine:
                 state[j] = st.state[vi]
                 match[j] = st.match[vi]
             tw = time.perf_counter()
-            m_out, s_out = self._scan_wave(scanner, tokens, lengths,
-                                           state, match)
+            flight.begin(EV_STREAM_WAVE, arg=len(wave))
+            try:
+                m_out, s_out = self._scan_wave(scanner, tokens, lengths,
+                                               state, match)
+            finally:
+                flight.end(EV_STREAM_WAVE)
             stats.wave_us += int((time.perf_counter() - tw) * 1e6)
             stats.waves += 1
             stats.wave_rows += len(wave)
@@ -431,10 +447,13 @@ class StreamEngine:
 
     def finish(self, st: StreamState) -> Verdict:
         tf = time.perf_counter()
+        flight.begin(EV_STREAM_FINISH, arg=st.body_len)
         try:
             return self._finish(st)
         finally:
+            flight.end(EV_STREAM_FINISH)
             self.stats.finish_us += int((time.perf_counter() - tf) * 1e6)
+            self.stats.finishes += 1
 
     def _finish(self, st: StreamState) -> Verdict:
         p = self.pipeline

@@ -25,13 +25,15 @@ profiles the Go side with pprof.  The equivalents here:
     ``stage_breakdown`` object in BENCH json, decomposing the latency
     leg by stage).
   * ``profiled`` — wraps a region in ``torch.profiler`` collection
-    (host and CUDA activity) and writes a Chrome trace under
-    ``--trace-dir`` when the region ends.
+    (host and CUDA activity, every thread) and writes a Chrome trace
+    under ``--trace-dir`` when the region ends, with the flight
+    recorder's spans merged in on the trace's clock.
 """
 
 from __future__ import annotations
 
 import heapq
+import mmap
 import os
 import re
 import threading
@@ -714,6 +716,10 @@ EV_VERDICT = 14    # instant: verdict resolved, tag=req-id hash, arg=lane
 EV_SHADOW = 15     # shadow-lane candidate scan (shadow thread)
 EV_EXPORT = 16     # postanalytics export flush attempt
 EV_WATCHDOG = 17   # instant: watchdog released futures, arg=count
+EV_STREAM_FEED = 18    # stream chunk feed/flush: incremental decode+normalize
+EV_STREAM_WAVE = 19    # one stream scan wave's round trip on the card
+EV_STREAM_FINISH = 20  # one stream's finish: rule fold + confirm
+EV_ENGINE_SYNC = 21    # the engine's copy back of rule hits (waits on the card)
 
 EVENT_NAMES: Dict[int, str] = {
     EV_CYCLE: "cycle", EV_DRAIN: "drain", EV_QUEUE: "queue_wait",
@@ -723,6 +729,8 @@ EVENT_NAMES: Dict[int, str] = {
     EV_STREAM: "stream_step", EV_OVERSIZED: "oversized",
     EV_SUBMIT: "submit", EV_VERDICT: "verdict", EV_SHADOW: "shadow_scan",
     EV_EXPORT: "export", EV_WATCHDOG: "watchdog_release",
+    EV_STREAM_FEED: "stream_feed", EV_STREAM_WAVE: "stream_wave",
+    EV_STREAM_FINISH: "stream_finish", EV_ENGINE_SYNC: "engine_sync",
 }
 
 #: phases — begin / end / instant (flow endpoints are instants on the
@@ -739,6 +747,23 @@ EVENT_BYTES = 112
 #: tens under load, plenty for the overlap report's window
 DEFAULT_RING_KB = 256
 
+#: the ring under ``--trace-dir``: a traced run keeps every event of
+#: the server's life, so the merged profiler trace names every idle
+#: gap.  Reckoned from the busiest ring, the dispatch thread at about
+#: 1500 events a second under closed-loop load, over a server life of
+#: about 90 s (135k events, ~15 MB at EVENT_BYTES), with twice that
+#: for room: ~300k events
+TRACE_RING_KB = 32 * 1024
+
+
+def ring_kb_for(explicit: Optional[int], traced: bool) -> int:
+    """The per-thread ring a server runs with: ``--trace-ring-kb`` when
+    given, else :data:`TRACE_RING_KB` under ``--trace-dir`` and
+    :data:`DEFAULT_RING_KB` without it."""
+    if explicit is not None:
+        return explicit
+    return TRACE_RING_KB if traced else DEFAULT_RING_KB
+
 
 def request_tag(request_id: str) -> int:
     """Stable-within-process int tag for a wire request id (the flow id
@@ -752,7 +777,7 @@ class _ThreadRing:
     torn read of at most the newest slot — telemetry, not verdicts)."""
 
     __slots__ = ("root", "thread_name", "index", "cap", "buf", "head",
-                 "dropped", "cycle", "thread")
+                 "dropped", "cycle", "thread", "native_id")
 
     def __init__(self, root: str, thread_name: str, index: int, cap: int):
         self.root = root
@@ -767,6 +792,9 @@ class _ThreadRing:
         #: a soft cap, so short-lived workers (abandoned lanes, test
         #: batchers, swap warmers) cannot grow the registry unbounded
         self.thread = threading.current_thread()
+        #: the OS thread id, the ``tid`` the profiler's trace gives
+        #: this thread's own events (the ``--trace-dir`` merge)
+        self.native_id = threading.get_native_id()
 
     def record(self, t_ns: int, code: int, phase: int, cycle: int,
                tag: int, arg: int) -> None:
@@ -929,7 +957,8 @@ class FlightRecorder:
         with self._lock:
             rings = list(self._rings)
         threads = [{"tid": r.index, "root": r.root,
-                    "thread": r.thread_name, "dropped": r.dropped}
+                    "thread": r.thread_name, "dropped": r.dropped,
+                    "native_id": r.native_id}
                    for r in rings]
         events: List[tuple] = []
         for r in rings:
@@ -1043,15 +1072,131 @@ def match_spans(events: Sequence[tuple]) -> List[tuple]:
 flight = FlightRecorder()
 
 
+#: the ``record_function`` event that checks the merge's clock offset
+#: against the profiler's own stamps
+CLOCK_ANCHOR = "ipt.clock_anchor"
+
+#: how far outside its ``monotonic_ns`` bracket the anchor's profiler
+#: stamps may lie, by the merge's offset, before the merge refuses to
+#: write spans it would misplace (µs)
+ANCHOR_LIMIT_US = 200.0
+
+
+def _clock_anchor(torch) -> Tuple[int, int, int]:
+    """``(m0, m1, offset_ns)``: a ``record_function`` event bracketed by
+    ``monotonic_ns`` stamps, and the offset from ``monotonic_ns`` to
+    Unix-epoch ns read beside it."""
+    a = time.monotonic_ns()
+    wall = time.time_ns()
+    b = time.monotonic_ns()
+    m0 = time.monotonic_ns()
+    with torch.profiler.record_function(CLOCK_ANCHOR):
+        pass
+    m1 = time.monotonic_ns()
+    return m0, m1, wall - (a + b) // 2
+
+
+_BASE_RE = re.compile(rb'"baseTimeNanoseconds"\s*:\s*(\d+)')
+_TS_RE = re.compile(rb'"ts"\s*:\s*([0-9.]+)')
+_DUR_RE = re.compile(rb'"dur"\s*:\s*([0-9.]+)')
+
+
+def merge_flight_spans(path: str, recorder: "FlightRecorder",
+                       anchor: Tuple[int, int, int]) -> dict:
+    """Append the recorder's matched spans to the profiler's Chrome
+    trace at ``path``, on the trace's own clock, in place.
+
+    Each span becomes a complete event ``ipt.<name>`` of category
+    ``user_annotation`` on the pid and OS thread id of the thread that
+    recorded it.  An event's time in the trace is ``baseTimeNanoseconds
+    / 1000 + ts`` µs of the Unix epoch (``ts`` alone when the trace has
+    no base); a span's ``monotonic_ns`` stamps move onto it by the
+    offset read at export.  The offset is checked first against the
+    profiler's own stamps of the anchor event (:func:`_clock_anchor`):
+    when the anchor is missing, or lies more than
+    :data:`ANCHOR_LIMIT_US` outside its monotonic bracket, the file is
+    left as the profiler wrote it and ``refused`` says why.  The trace
+    is never read whole: its head gives the base, a search of the
+    mapped file finds the anchor and the end of ``traceEvents``, and
+    the spans are written over that end, which is written back after
+    them.  Returns what the merge did: ``spans``, ``dropped`` (events
+    the rings evicted), ``anchor_error_us`` (None without an anchor)
+    and ``refused`` (None when the spans were written)."""
+    m0, m1, offset_ns = anchor
+    snap = recorder.snapshot()
+    info = {"spans": 0, "dropped": snap["dropped"],
+            "anchor_error_us": None, "refused": None}
+    with open(path, "r+b") as f:
+        m = _BASE_RE.search(f.read(4096))
+        base_ns = int(m.group(1)) if m else 0
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            at = mm.rfind(b'"%s"' % CLOCK_ANCHOR.encode())
+            if at >= 0:
+                near = mm[at:at + 512]
+                ts, dur = _TS_RE.search(near), _DUR_RE.search(near)
+                if ts and dur:
+                    a0 = base_ns + float(ts.group(1)) * 1e3
+                    a1 = a0 + float(dur.group(1)) * 1e3
+                    info["anchor_error_us"] = max(
+                        0.0, m0 + offset_ns - a0, a1 - m1 - offset_ns) / 1e3
+            name = mm.rfind(b'"traceName"')
+            close = mm.rfind(b"]", 0, name if name >= 0 else len(mm))
+            if close < 0:
+                raise ValueError("%s holds no traceEvents list" % path)
+            tail = mm[close:]
+            k = close - 1
+            while k >= 0 and mm[k:k + 1].isspace():
+                k -= 1
+            empty = k >= 0 and mm[k:k + 1] == b"["
+        err = info["anchor_error_us"]
+        if err is None:
+            info["refused"] = "no clock anchor in the trace"
+            return info
+        if err > ANCHOR_LIMIT_US:
+            info["refused"] = ("clock anchor %.1f us outside its bracket "
+                               "(limit %.0f us)" % (err, ANCHOR_LIMIT_US))
+            return info
+        native = {t["tid"]: t["native_id"] for t in snap["threads"]}
+        pid = os.getpid()
+        shift = offset_ns - base_ns
+        f.seek(close)
+        f.truncate()
+        sep = b"" if empty else b",\n"
+        batch: List[str] = []
+        for tid, code, cyc, tag, arg, t0_ns, t1_ns in match_spans(
+                snap["events"]):
+            batch.append(
+                '{"ph": "X", "cat": "user_annotation", "name": "ipt.%s", '
+                '"pid": %d, "tid": %d, "ts": %.3f, "dur": %.3f, '
+                '"args": {"cycle": %d, "tag": %d, "arg": %d}}'
+                % (EVENT_NAMES.get(code, "ev%d" % code), pid,
+                   native.get(tid, tid), (t0_ns + shift) / 1e3,
+                   (t1_ns - t0_ns) / 1e3, cyc, tag, arg))
+            if len(batch) >= 8192:
+                f.write(sep + ",\n".join(batch).encode())
+                sep, batch = b",\n", []
+                info["spans"] += 8192
+        if batch:
+            f.write(sep + ",\n".join(batch).encode())
+            info["spans"] += len(batch)
+        f.write(b"\n" + tail)
+    return info
+
+
 @contextmanager
-def profiled(trace_dir: Optional[str]):
+def profiled(trace_dir: Optional[str],
+             recorder: Optional["FlightRecorder"] = None):
     """``torch.profiler`` region (no-op when trace_dir is falsy).
 
     Records host activity, and CUDA activity when a card is present,
-    for the whole region and writes one Chrome trace
-    (``serve-<pid>.json``, loadable in chrome://tracing or Perfetto)
-    under trace_dir when the region ends.  Kept coarse (whole-region):
-    per-kernel detail comes from the trace itself.
+    for the whole region: the torch ops of every thread, those started
+    before the region too (``profile_all_threads``; a torch without it
+    raises here, before anything is served).  When the region ends it
+    writes one Chrome trace (``serve-<pid>.json``, loadable in
+    chrome://tracing or Perfetto) under trace_dir, with the flight
+    recorder's spans merged in on the trace's clock
+    (:func:`merge_flight_spans`), and prints the export's seconds, the
+    spans merged, the recorder's dropped events and the clock check.
     """
     if not trace_dir:
         yield
@@ -1059,19 +1204,33 @@ def profiled(trace_dir: Optional[str]):
     import sys
 
     import torch
+    from torch._C._profiler import _ExperimentalConfig
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     out = os.path.join(trace_dir, "serve-%d.json" % os.getpid())
-    t0 = time.time()
-    prof = torch.profiler.profile(activities=acts)
+    prof = torch.profiler.profile(
+        activities=acts,
+        experimental_config=_ExperimentalConfig(profile_all_threads=True))
     prof.__enter__()
     try:
         yield
     finally:
+        anchor = _clock_anchor(torch)
         prof.__exit__(None, None, None)
+        t0 = time.monotonic()
         prof.export_chrome_trace(out)
-        print("profiler trace (%.1fs) written to %s"
-              % (time.time() - t0, out), file=sys.stderr)
+        t1 = time.monotonic()
+        info = merge_flight_spans(out, recorder or flight, anchor)
+        if info["refused"] is None:
+            merged = ("%d flight spans merged, %d flight events dropped; "
+                      "clock check: anchor %.1f us outside its bracket"
+                      % (info["spans"], info["dropped"],
+                         info["anchor_error_us"]))
+        else:
+            merged = "flight spans NOT merged: %s" % info["refused"]
+        print("profiler trace written to %s: export %.1fs, merge %.1fs, %s"
+              % (out, t1 - t0, time.monotonic() - t1, merged),
+              file=sys.stderr)

@@ -80,9 +80,11 @@ def card_stand_in(monkeypatch):
             return CardEngine(cr)
 
         def detect_device_multi(self, buckets, num_requests,
-                                head_only=False, device=None):
+                                head_only=False, device=None,
+                                sync_ns=None):
             return super().detect_device_multi(
-                buckets, num_requests, head_only, torch.device("cpu"))
+                buckets, num_requests, head_only, torch.device("cpu"),
+                sync_ns)
 
     reached = []
 
