@@ -17,9 +17,15 @@ from __future__ import annotations
 
 import base64
 import binascii
+import os
 import re
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ingress_plus_tpu_torch.models.native_transforms import (
+    compress_whitespace,
+    remove_whitespace,
+)
 from ingress_plus_tpu_torch.serve.bodyparse import flatten_json, parse_multipart
 from ingress_plus_tpu_torch.serve.normalize import (
     html_entity_decode,
@@ -138,12 +144,28 @@ def t_replacenulls(d: bytes) -> bytes:
     return d.replace(b"\x00", b" ")
 
 
-def t_compresswhitespace(d: bytes) -> bytes:
+def t_compresswhitespace_py(d: bytes) -> bytes:
     return re.sub(rb"[\s\x0b]+", b" ", d)
 
 
-def t_removewhitespace(d: bytes) -> bytes:
+def t_removewhitespace_py(d: bytes) -> bytes:
     return re.sub(rb"[\s\x0b]+", b"", d)
+
+
+def t_compresswhitespace(d: bytes) -> bytes:
+    """One pass in C++ (models/native_transforms.py), byte for byte
+    :func:`t_compresswhitespace_py`, which ``IPT_NO_NATIVE_CONFIRM``
+    (read at each call) selects instead."""
+    if os.environ.get("IPT_NO_NATIVE_CONFIRM"):
+        return t_compresswhitespace_py(d)
+    return compress_whitespace(d)
+
+
+def t_removewhitespace(d: bytes) -> bytes:
+    """As :func:`t_compresswhitespace`, for :func:`t_removewhitespace_py`."""
+    if os.environ.get("IPT_NO_NATIVE_CONFIRM"):
+        return t_removewhitespace_py(d)
+    return remove_whitespace(d)
 
 
 def t_trim(d: bytes) -> bytes:
@@ -276,6 +298,10 @@ def apply_transforms(data: bytes, transforms: List[str]) -> bytes:
 _TF_MEMO: Dict[tuple, bytes] = {}
 _TF_MEMO_CAP = 1 << 15
 _TF_MEMO_MAXLEN = 512
+#: the request cache's entry for the transform chains applied to values
+#: longer than ``_TF_MEMO_MAXLEN``: [nanoseconds, input bytes]
+#: (``ConfirmRule._transformed_iter``; read by ``confirm_plane.confirm_one``)
+LONG_TRANSFORM_KEY = ("#long_transform",)
 
 
 def transform_cached(tkey: tuple, transforms: List[str],
@@ -1033,7 +1059,10 @@ class ConfirmRule:
         """Generator twin of :meth:`_entry_vals` for evaluations the
         shared cache cannot serve — compiled ``!VAR:x`` exclusions,
         runtime ctl target exclusions, or cache-less library callers —
-        yielding the same ``(val, exact, is_count, label)`` shape."""
+        yielding the same ``(val, exact, is_count, label)`` shape.  A
+        chain applied to a value longer than ``_TF_MEMO_MAXLEN`` books
+        its nanoseconds and input bytes in the request cache under
+        :data:`LONG_TRANSFORM_KEY` (a cache-less caller books nothing)."""
         tkey = self._tkey
         for text, exact, is_count, label in self._iter_entry(
                 entry, streams, cache, extra_excl):
@@ -1047,7 +1076,13 @@ class ConfirmRule:
                 key = (tkey, text)
                 val = cache.get(key)
                 if val is None:
+                    t0 = time.perf_counter_ns()
                     val = apply_transforms(text, self.transforms)
+                    book = cache.get(LONG_TRANSFORM_KEY)
+                    if book is None:
+                        book = cache[LONG_TRANSFORM_KEY] = [0, 0]
+                    book[0] += time.perf_counter_ns() - t0
+                    book[1] += len(text)
                     cache[key] = val
             yield val, exact, is_count, label
 

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ingress_plus_tpu_torch.models.confirm import LONG_TRANSFORM_KEY
 from ingress_plus_tpu_torch.serve.lanes import DeviceHang, LaneWorker
 from ingress_plus_tpu_torch.utils import faults
 from ingress_plus_tpu_torch.utils.trace import EV_CONFIRM, flight
@@ -56,11 +57,15 @@ class ConfirmResult:
     order), ``points`` (attack-export match details, capped at 8),
     ``excluded`` (the runtime-ctl exclusion mask applied, for the
     telemetry fold), ``detection_only`` (a matched
-    ctl:ruleEngine=DetectionOnly), and the per-rule cost samples
-    ``rule_idx``/``rule_ns`` (RuleStats confirm-cost telemetry)."""
+    ctl:ruleEngine=DetectionOnly), the per-rule cost samples
+    ``rule_idx``/``rule_ns`` (RuleStats confirm-cost telemetry), and
+    the nanoseconds and input bytes of the transform chains applied to
+    long values, ``long_transform_ns``/``long_transform_bytes``
+    (PipelineStats, /metrics ipt_confirm_long_transform_*)."""
 
     __slots__ = ("confirmed", "points", "excluded", "detection_only",
-                 "rule_idx", "rule_ns")
+                 "rule_idx", "rule_ns", "long_transform_ns",
+                 "long_transform_bytes")
 
     def __init__(self) -> None:
         self.confirmed: List[int] = []
@@ -69,6 +74,8 @@ class ConfirmResult:
         self.detection_only = False
         self.rule_idx: List[int] = []
         self.rule_ns: List[int] = []
+        self.long_transform_ns = 0
+        self.long_transform_bytes = 0
 
 
 class ConfirmMemo:
@@ -375,6 +382,9 @@ def confirm_one(pl, req, hit_row: np.ndarray,
                 points.append({"rule_id": int(rule_ids[r]),
                                "var": det[0][0],
                                "value": det[0][1]})
+    book = cache_get(LONG_TRANSFORM_KEY)
+    if book is not None:
+        res.long_transform_ns, res.long_transform_bytes = book
     return res
 
 

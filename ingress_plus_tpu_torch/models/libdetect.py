@@ -19,11 +19,12 @@ that package's Makefile flags into ``ingress_plus_tpu_torch/build/``
 ``detect_xss`` dispatch as the JAX package does: the twin whenever its
 ``max_len`` window holds no NUL (``c_char_p`` data), the Python
 detectors for a NUL window, and the Python detectors alone when
-``IPT_NO_NATIVE_CONFIRM`` is set (read at each call).  The twin keeps no
-mutable static state, so the pooled confirm workers may call it at once.
-It is loaded with ``ctypes.PyDLL``, so a call keeps the interpreter lock
-(the JAX package's ``ctypes.CDLL`` releases it): a call lasts
-microseconds, and a thread that releases the lock that often waits to
+``IPT_NO_NATIVE_CONFIRM`` is set (read at each call; it also selects the
+Python whitespace transforms over ``models/native_transforms.py``).  The
+twin keeps no mutable static state, so the pooled confirm workers may
+call it at once.  It is loaded with ``ctypes.PyDLL``, so a call keeps the
+interpreter lock (the JAX package's ``ctypes.CDLL`` releases it): a call
+lasts microseconds, and a thread that releases the lock that often waits to
 take it back behind every busy Python thread of the process (the serve
 plane's loop, lane and exporter threads).
 
@@ -354,14 +355,21 @@ def run_sanitized(strings: Iterable[bytes], timeout: float = 300.0
     sanitized twin: ([(sqli, xss)] per string as far as the runner got,
     its stderr, its exit code).  The caller reads the sanitizer reports
     off stderr."""
-    binary = sanitized_binary()
+    proc = run_framed(sanitized_binary(), strings, timeout)
+    bits = [(line[:1] == b"1", line[1:2] == b"1")
+            for line in proc.stdout.splitlines()]
+    return bits, proc.stderr.decode(errors="replace"), proc.returncode
+
+
+def run_framed(binary, strings: Iterable[bytes], timeout: float
+               ) -> subprocess.CompletedProcess:
+    """Run a sanitized runner on one input file of ``strings``, each a
+    4-byte little-endian length and its bytes, with
+    :data:`SANITIZER_ENV`; its stdout and stderr are captured."""
     with tempfile.NamedTemporaryFile(suffix=".bin") as f:
         for data in strings:
             f.write(struct.pack("<I", len(data)) + data)
         f.flush()
-        proc = subprocess.run([str(binary), f.name], capture_output=True,
+        return subprocess.run([str(binary), f.name], capture_output=True,
                               timeout=timeout,
                               env={**os.environ, **SANITIZER_ENV})
-    bits = [(line[:1] == b"1", line[1:2] == b"1")
-            for line in proc.stdout.splitlines()]
-    return bits, proc.stderr.decode(errors="replace"), proc.returncode

@@ -47,6 +47,7 @@ from ingress_plus_tpu_torch.models.confirm_plane import (
 )
 from ingress_plus_tpu_torch.models.engine import DetectionEngine
 from ingress_plus_tpu_torch.models.libdetect import native_library
+from ingress_plus_tpu_torch.models.native_transforms import native_transforms
 from ingress_plus_tpu_torch.models.rule_stats import RuleStats
 from ingress_plus_tpu_torch.ops.scan import pad_rows
 from ingress_plus_tpu_torch.serve.normalize import (
@@ -170,6 +171,12 @@ class PipelineStats:
     engine_sync_us: int = 0
     engine_cpu_us: int = 0
     confirm_cpu_us: int = 0
+    #: the transform chains the confirm walks applied to values longer
+    #: than the transform memo takes (models/confirm.py
+    #: ``_transformed_iter``): their time and input bytes, booked with
+    #: ``confirm_cpu_us`` (/metrics ipt_confirm_long_transform_*)
+    confirm_long_transform_us: int = 0
+    confirm_long_transform_bytes: int = 0
 
     #: the admission-shared counters (fail_open / degraded / shed /
     #: scorer_diff) are bumped from every thread that can fail a
@@ -196,14 +203,18 @@ class PipelineStats:
             self.scorer_diff[kind] = self.scorer_diff.get(kind, 0) + 1
 
     def count_host(self, engine_cpu_us: int = 0, engine_sync_us: int = 0,
-                   confirm_cpu_us: int = 0) -> None:
-        """Book the engine's and confirm's host split: booked with
-        ``engine_us`` from the dispatch thread and with it from
-        ``prefilter`` on the stream, oversized and shadow threads."""
+                   confirm_cpu_us: int = 0, long_transform_us: int = 0,
+                   long_transform_bytes: int = 0) -> None:
+        """Book the engine's and confirm's host split, and the confirm's
+        long-value transform chains: booked with ``engine_us`` from the
+        dispatch thread and with it from ``prefilter`` on the stream,
+        oversized and shadow threads."""
         with self._lock:
             self.engine_cpu_us += engine_cpu_us
             self.engine_sync_us += engine_sync_us
             self.confirm_cpu_us += confirm_cpu_us
+            self.confirm_long_transform_us += long_transform_us
+            self.confirm_long_transform_bytes += long_transform_bytes
 
     def count_shed(self, reason: str) -> None:
         """One admission shed (readers snapshot with dict())."""
@@ -440,9 +451,11 @@ class DetectionPipeline:
         # (inline, thread-free) pool is simply dropped.
         self.confirm_pool = ConfirmPool(n_workers=confirm_workers,
                                         hang_budget_s=confirm_hang_budget_s)
-        # the confirm stage's C++ twin (models/libdetect.py): built and
-        # loaded now, so no request pays for it; a failed build raises
+        # the confirm stage's C++ twin (models/libdetect.py) and its
+        # whitespace transforms (models/native_transforms.py): built and
+        # loaded now, so no request pays for them; a failed build raises
         native_library()
+        native_transforms()
         #: per-cycle flood-memo capacity; 0 disables memoization
         self.confirm_memo_entries = int(confirm_memo_entries)
         # cross-cycle verdict cache (docs/RETUNE.md): opt-in (0 = off,
@@ -1156,6 +1169,7 @@ class DetectionPipeline:
         failed_rows: List[int] = []
         ridx_all: List[int] = []
         rns_all: List[int] = []
+        long_tf_ns = long_tf_bytes = 0
         scorer = self.scorer
         for qi, req in enumerate(requests):
             res = results[qi]
@@ -1178,6 +1192,8 @@ class DetectionPipeline:
                 excl_rows.append((qi, res.excluded))
             ridx_all.extend(res.rule_idx)
             rns_all.extend(res.rule_ns)
+            long_tf_ns += res.long_transform_ns
+            long_tf_bytes += res.long_transform_bytes
             score = int(rs.rule_score[confirmed].sum()) if confirmed else 0
             classes = sorted(
                 {CLASSES[rs.rule_class[r]] for r in confirmed})
@@ -1262,7 +1278,9 @@ class DetectionPipeline:
         # excluded by construction; the per-rule confirm_ns telemetry
         # (RuleStats) carries the true CPU cost either way.
         stats.count_host(confirm_cpu_us=cjob.launch_cpu_us + shares_cpu_us
-                         + (time.thread_time_ns() - cpu0) // 1000)
+                         + (time.thread_time_ns() - cpu0) // 1000,
+                         long_transform_us=long_tf_ns // 1000,
+                         long_transform_bytes=long_tf_bytes)
         stats.confirm_us += cjob.launch_us + int(
             (time.perf_counter() - tc0) * 1e6)
         stats.confirmed_rule_hits += sum(len(v.rule_ids) for v in verdicts)

@@ -147,6 +147,12 @@ METRIC_HELP = {
     "ipt_confirm_cpu_us_sum":
         "cumulative thread CPU time of the confirm stage, summed over "
         "confirm workers: above ipt_confirm_us_sum when they overlap (us)",
+    "ipt_confirm_long_transform_us_sum":
+        "cumulative time of the confirm's transform chains on values too "
+        "long for the transform memo (us)",
+    "ipt_confirm_long_transform_bytes_total":
+        "input bytes of the confirm's transform chains on values too long "
+        "for the transform memo",
     "ipt_stream_feed_us_sum":
         "cumulative stream chunk decode and normalize time (us)",
     "ipt_stream_wave_us_sum":
@@ -787,6 +793,14 @@ class ServeLoop:
             "ipt_engine_cpu_us_sum %d" % p.engine_cpu_us,
             "# TYPE ipt_confirm_cpu_us_sum counter",
             "ipt_confirm_cpu_us_sum %d" % p.confirm_cpu_us,
+            # the transform chains of the confirm walks on long values
+            # (models/confirm.py _transformed_iter)
+            "# TYPE ipt_confirm_long_transform_us_sum counter",
+            "ipt_confirm_long_transform_us_sum %d"
+            % p.confirm_long_transform_us,
+            "# TYPE ipt_confirm_long_transform_bytes_total counter",
+            "ipt_confirm_long_transform_bytes_total %d"
+            % p.confirm_long_transform_bytes,
         ]
         # the stream lane's own clock (serve/stream.py StreamStats)
         ss = self.batcher.stream_engine.stats
